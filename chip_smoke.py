@@ -1,0 +1,471 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: SAGe_Read and
+SAGe_ISP through the hand-written CUDA kernels, checked against the
+sequential numpy decoder.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+  device   the card (exits non-zero when torch.cuda.is_available() is false)
+  build    nvcc builds every kernel of src/repro_torch/kernels/csrc (build/)
+  data     an Illumina set at full block width (120 kbp reference, depth 4,
+           token_target 65536: 8 blocks of C = 65558) tiled x4096 to 32768
+           blocks (~2 Gbases) in a codec v2 container, plus ONT and HiFi
+           sets at the test fixtures' size in their own containers
+  kernels  each kernel against its plain torch version on the card at the
+           main path's shapes, timed with CUDA events beside its bound
+           (device time, and the call time that includes launch overhead)
+  main     SageStore(device="cuda"): session.read of 256-block ranges in
+           2bit / kmer / onehot, a 4096-block dispatch-mode kmer stream, and
+           every ONT and HiFi block in all three formats; every decoded block
+           is held read for read against repro_torch.core.refdec, and the
+           launch counts of the run show the path went through every kernel
+  profile  a warm 256-block read and a cold 1024-block stream, each timed on
+           the host clock and then repeated under torch.profiler: device time
+           by kernel and the device busy share
+Then the kernel table as one JSON line, the card's name and power limit,
+and the final {"ok": true, ...} line. Any failure raises (exit code != 0).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+try:
+    import torch
+
+    from repro_torch.core import SageStore
+    from repro_torch.core.bitio import unpack_2bit
+    from repro_torch.core.blocks import block_row_widths, localize_directory
+    from repro_torch.core.decode_torch import (
+        DeviceBlocks,
+        host_to_tensor,
+        reset_trace_counts,
+        trace_counts,
+    )
+    from repro_torch.core.encoder import SageEncoder
+    from repro_torch.core.format import D, STREAMS, SageFile
+    from repro_torch.core.layout import SageContainerV2, write_v2
+    from repro_torch.core.refdec import decode_block
+    from repro_torch.genomics.synth import make_reference, sample_read_set
+    from repro_torch.kernels import cuda_lib, ops, ref
+except ImportError as e:  # run outside a checkout of the repository
+    print(f"chip_smoke: cannot import the port ({e}); run from the repository root", file=sys.stderr)
+    sys.exit(2)
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+INT_OPS_PER_S = 67e12  # H100 SXM non-tensor-core rate (float32 table entry)
+SPIN_HZ = 2.0e9  # >= the H100's SM clock, so a spin of n cycles lasts at least n / SPIN_HZ s
+# Illumina at full width: 8 source blocks of C = 65558 tokens
+ILLUMINA = dict(ref_len=120_000, ref_seed=7, depth=4, seed=8, token_target=65536,
+                blocks=8, tokens=65558)
+TILES = 4096  # 8 x 4096 = 32768 blocks, ~2 Gbases
+GROUP = 32  # store group_blocks: one codec upload + unpack launch per group
+BUCKET = 256  # blocks per session.read (one decode bucket)
+N_STREAM, PER_FETCH = 4096, 64  # SAGe_ISP stream length and fetch size
+N_PROFILE = 1024  # blocks of each profiled cold stream; they start at 1x and 2x this
+KMER_K = 4
+WORK = ROOT / "build" / "smoke_data"
+
+
+def emit(phase: str, **kw) -> None:
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+
+
+def _events_ms(fn, iters: int, hold_s: float = 0.0) -> float:
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if hold_s:
+        torch.cuda._sleep(int(hold_s * SPIN_HZ))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> tuple[float, float]:
+    """(device ms, call ms) per call of ``fn``, each from CUDA events over
+    ``iters`` warm calls. Call: the calls run as fast as the host issues
+    them, so launch overhead counts. Device: a spin kernel holds the stream
+    while every call is enqueued, so the events see only device work."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    call = _events_ms(fn, iters)
+    return _events_ms(fn, iters, hold_s=2e-3 * iters * call), call
+
+
+def timings(kernel, iters: int, plain, plain_iters: int) -> dict:
+    """Device and host-paced call times of a kernel wrapper, and the device
+    time of its plain version."""
+    ms, call_ms = cuda_ms(kernel, iters)
+    return dict(ms=ms, call_ms=call_ms, plain_ms=cuda_ms(plain, plain_iters, warmup=1)[0])
+
+
+def profile_window(fn) -> dict:
+    """Run ``fn(0)`` on the host clock and ``fn(1)``, the same work, under
+    torch.profiler: the wall time of the first, the device time of every
+    kernel and copy by name in the second, and the device busy share (device
+    time over the unprofiled wall time; null when the profiler saw no device
+    activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(0)
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn(1)
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
+    busy_us = sum(r[1] for r in rows)
+    return {"wall_ms": wall_us / 1e3, "device_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / wall_us if rows else None,
+            "device_ms_by_name": [{"name": n[:60], "ms": t / 1e3, "count": c} for n, t, c in rows[:8]]}
+
+
+def bound(nbytes: int, ops_: int) -> tuple[float, str]:
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops_ / INT_OPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def source_block(b: int, n_src: int) -> int:
+    """Source block at position ``b`` of a tiled container. Tile ``t`` holds
+    the source blocks rotated by a hash of ``t``, so a gather that serves the
+    blocks of another tile in place of a range's own disagrees with refdec."""
+    t, j = divmod(int(b), n_src)
+    h = (t * 0x9E3779B97F4A7C15) & (2**64 - 1)
+    h ^= h >> 31
+    h = (h * 0xBF58476D1CE4E5B9) & (2**64 - 1)
+    return (j + (h >> 33)) % n_src
+
+
+def tile_sage_file(sf: SageFile, times: int) -> SageFile:
+    """Replicate a container block-wise ``times`` x. Tile ``t`` lays out the
+    words of its source blocks in ``source_block`` order (blocks start on
+    word boundaries), so directory offsets stay monotonic, as the encoder
+    writes them, and every tiled block decodes exactly like its source
+    block. Consensus is shared across tiles (reads re-map the same
+    reference), matching how depth scales in a real dataset."""
+    if times <= 1:
+        return sf
+    n = sf.meta.n_blocks
+    sizes = {s: int(sf.streams[s].size) for s in STREAMS}
+    layouts: dict[tuple, tuple] = {}  # source order -> (streams, offsets in words)
+    tile_streams: dict[str, list] = {s: [] for s in STREAMS}
+    tiles = []
+    for t in range(times):
+        order = tuple(source_block(t * n + j, n) for j in range(n))
+        if order not in layouts:
+            words, offs = {}, {}
+            for s in STREAMS:
+                off = sf.directory[:, D[f"off_{s}"]].astype(np.int64)
+                assert (off % 32 == 0).all() and off[0] == 0 and (np.diff(off) >= 0).all(), s
+                w0 = off // 32
+                w1 = np.append(w0[1:], sizes[s])
+                parts = [sf.streams[s][w0[j]:w1[j]] for j in order]
+                words[s] = np.concatenate(parts) if parts else sf.streams[s][:0]
+                offs[s] = np.cumsum([0] + [p.size for p in parts[:-1]])
+            layouts[order] = (words, offs)
+        words, offs = layouts[order]
+        d = sf.directory[list(order)].copy()
+        for s in STREAMS:
+            tile_streams[s].append(words[s])
+            d[:, D[f"off_{s}"]] = (t * sizes[s] + offs[s]) * 32
+        tiles.append(d)
+    streams = {s: np.concatenate(tile_streams[s]) for s in STREAMS}
+    bits = dict(sf.meta.stream_bits)
+    bits.update({s: sizes[s] * 32 * times for s in STREAMS})
+    meta = dataclasses.replace(
+        sf.meta,
+        n_blocks=n * times,
+        n_reads=sf.meta.n_reads * times,
+        n_segments=sf.meta.n_segments * times,
+        stream_bits=bits,
+    )
+    return SageFile(meta=meta, consensus2b=sf.consensus2b,
+                    directory=np.concatenate(tiles), streams=streams)
+
+
+def read_multiset(tokens: np.ndarray, starts: np.ndarray, lens: np.ndarray, n: int) -> list[bytes]:
+    return sorted(bytes(tokens[s : s + ln].astype(np.uint8)) for s, ln in zip(starts[:n], lens[:n]))
+
+
+class Oracle:
+    """refdec read multisets of a container's source blocks; block b of a
+    tiled container is source block ``source_block(b, n_src)``."""
+
+    def __init__(self, sf: SageFile) -> None:
+        cons = unpack_2bit(sf.consensus2b, sf.meta.cons_len)
+        self.n_src = sf.meta.n_blocks
+        self.want = [
+            sorted(bytes(np.asarray(r.seq, np.uint8)) for r in decode_block(sf, b, cons))
+            for b in range(self.n_src)
+        ]
+
+    def check(self, out: dict, block_ids: np.ndarray, what: str) -> int:
+        toks = out["tokens"].cpu().numpy()
+        st, ln = out["read_start"].cpu().numpy(), out["read_len"].cpu().numpy()
+        nr = out["n_reads"].cpu().numpy()
+        for i, b in enumerate(np.asarray(block_ids)):
+            got = read_multiset(toks[i], st[i], ln[i], int(nr[i]))
+            if got != self.want[source_block(b, self.n_src)]:
+                raise AssertionError(f"{what}: block {int(b)} disagrees with refdec")
+        return int(len(block_ids))
+
+
+def check_format(out: dict, fmt: str) -> None:
+    toks = out["tokens"]
+    if fmt == "kmer":
+        want = ref.kmer_pack_ref(toks, KMER_K, out["n_tokens"])
+        assert out["kmer"].shape == want.shape and torch.equal(out["kmer"], want), "kmer plane"
+    elif fmt == "onehot":
+        oh = out["onehot"]
+        assert oh.shape == toks.shape + (4,) and bool(torch.isfinite(oh.float()).all())
+        assert torch.equal(oh, ref.one_hot_ref(toks)), "onehot plane"
+
+
+def main() -> None:
+    t_start = time.perf_counter()
+    # ---- device -----------------------------------------------------------
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this run needs an NVIDIA GPU",
+              file=sys.stderr)
+        sys.exit(1)
+    dev = torch.device("cuda")
+    card = smi()
+    props = torch.cuda.get_device_properties(dev)
+    emit("device", name=torch.cuda.get_device_name(0), smi=card, sms=props.multi_processor_count,
+         torch=torch.__version__, cuda=torch.version.cuda)
+
+    # ---- build ------------------------------------------------------------
+    t0 = time.perf_counter()
+    info = cuda_lib.build_all()
+    emit("build", seconds=time.perf_counter() - t0,
+         libs={k: {"built": v["built"],
+                   "ptxas": [ln.strip() for ln in v["log"].splitlines() if "registers" in ln or "spill" in ln]}
+               for k, v in info.items()})
+
+    # ---- data -------------------------------------------------------------
+    if WORK.exists():
+        shutil.rmtree(WORK)
+    WORK.mkdir(parents=True)
+    t0 = time.perf_counter()
+    ill = ILLUMINA
+    ref_ill = make_reference(ill["ref_len"], seed=ill["ref_seed"])
+    rs = sample_read_set(ref_ill, "illumina", depth=ill["depth"], seed=ill["seed"])
+    src = SageEncoder(ref_ill, token_target=ill["token_target"]).encode(rs)
+    t_enc = time.perf_counter() - t0
+    assert (src.meta.n_blocks, src.meta.caps.tokens) == (ill["blocks"], ill["tokens"]), src.meta.caps
+    big = tile_sage_file(src, TILES)
+    t0 = time.perf_counter()
+    st_big = write_v2(big, WORK / "illumina.sage2")
+    t_write = time.perf_counter() - t0
+    small = {}
+    ref_small = make_reference(60_000, seed=3)
+    for prof, kw in (("ont", dict(depth=2, max_reads=14, seed=11)),
+                     ("hifi", dict(depth=1, max_reads=6, seed=11))):
+        t0 = time.perf_counter()
+        sf = SageEncoder(ref_small, token_target=8192).encode(sample_read_set(ref_small, prof, **kw))
+        write_v2(sf, WORK / f"{prof}.sage2")
+        small[prof] = (sf, time.perf_counter() - t0)
+    emit("data", illumina_src_blocks=src.meta.n_blocks, blocks=big.meta.n_blocks,
+         bases=int(big.directory[:, D["n_tokens"]].sum()), caps=dataclasses.asdict(src.meta.caps),
+         encode_seconds=t_enc, write_seconds=t_write, container_bytes=st_big["file_nbytes"],
+         cap_words=st_big["cap_words"], row_words=sum(v for k, v in block_row_widths(src.meta).items() if k != "cons"),
+         small={p: {"blocks": sf.meta.n_blocks, "caps": dataclasses.asdict(sf.meta.caps), "seconds": s}
+                for p, (sf, s) in small.items()})
+
+    # ---- kernels: kernel vs plain on the card, main-path shapes ------------
+    rdr = SageContainerV2.open(WORK / "illumina.sage2")
+    widths = tuple((s, int(dict(rdr.layout.widths)[s])) for s in STREAMS)
+    dicts = torch.as_tensor(np.asarray(rdr._codec_dicts, np.uint8), device=dev)
+    ids = np.arange(BUCKET, dtype=np.int64)
+    packed_all = host_to_tensor(rdr.gather_packed(ids), dev)
+    caps, classes, fixed_len = src.meta.caps, src.meta.classes, src.meta.fixed_read_len
+    rows = ops.unpack(packed_all, dicts, widths)
+    arrays = dict(rows)
+    arrays["cons"] = host_to_tensor(rdr.gather_consensus_windows(ids), dev)
+    arrays["dir"] = host_to_tensor(localize_directory(rdr.directory, ids), dev)
+    arrays["valid"] = torch.ones((BUCKET, 1), dtype=torch.int32, device=dev)
+    n_tok_real = int(rdr.directory[ids, D["n_tokens"]].sum())
+    R, C = caps.segs, caps.tokens
+    table = {}
+
+    # B1 unpack: one 32-row group upload
+    packed = packed_all[:GROUP].contiguous()
+    k_out = ops.unpack(packed, dicts, widths)
+    p_out = ref.sage_unpack_ref(packed, dicts, widths)
+    torch.cuda.synchronize()
+    err = max(int((k_out[s].long() - p_out[s].long()).abs().max()) for s, _ in widths)
+    row_w = sum(w for _, w in widths)
+    b_ms, b_by = bound(packed.numel() * 4 + dicts.numel() + GROUP * row_w * 4, 8 * 4 * GROUP * row_w)
+    table["sage_unpack"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/sage_unpack.cu",
+        replaces="src/repro/kernels/sage_decode.py:270", shape=list(packed.shape), max_abs_err=err,
+        match=err == 0, **timings(lambda: ops.unpack(packed, dicts, widths), 200,
+                                  lambda: ref.sage_unpack_ref(packed, dicts, widths), 10),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    # B2 decode: one 256-block bucket
+    db = DeviceBlocks(arrays, caps, classes, fixed_len, BUCKET, dev)
+    k_dec = ops.sage_decode(db)
+    p_dec = ref.sage_decode_ref(db)
+    torch.cuda.synchronize()
+    keys = ("tokens", "read_pos", "read_rev", "read_start", "read_len", "read_corner")
+    err = max(int((k_dec[k].long() - p_dec[k].long()).abs().max()) for k in keys)
+    in_bytes = sum(v.numel() * v.element_size() for v in arrays.values())
+    out_bytes = BUCKET * C + 5 * BUCKET * R * 4
+    b_ms, b_by = bound(in_bytes + out_bytes, 20 * n_tok_real)
+    table["sage_decode"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/sage_decode.cu",
+        replaces="src/repro/kernels/sage_decode.py:51", shape=[BUCKET, C], max_abs_err=err,
+        match=err == 0, **timings(lambda: ops.sage_decode(db), 10,
+                                  lambda: ref.sage_decode_ref(db), 2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del p_dec
+
+    # B3 k-mer and B4 one-hot on the bucket's decoded tokens
+    toks = k_dec["tokens"]
+    ntok = arrays["dir"][:, D["n_tokens"]].contiguous()
+    k_km, p_km = ops.kmer_tokens(toks, KMER_K, ntok), ref.kmer_pack_ref(toks, KMER_K, ntok)
+    err = int((k_km.long() - p_km.long()).abs().max())
+    b_ms, b_by = bound(toks.numel() + ntok.numel() * 4 + k_km.numel() * 4, 3 * KMER_K * k_km.numel())
+    table["kmer_pack"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/reformat.cu",
+        replaces="src/repro/kernels/reformat.py:56", shape=list(toks.shape), max_abs_err=err,
+        match=err == 0, **timings(lambda: ops.kmer_tokens(toks, KMER_K, ntok), 50,
+                                  lambda: ref.kmer_pack_ref(toks, KMER_K, ntok), 5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    k_oh, p_oh = ops.one_hot(toks), ref.one_hot_ref(toks)
+
+    def library_one_hot():
+        return torch.nn.functional.one_hot(toks.long(), 5)[..., :4].to(torch.bfloat16)
+
+    err = float((k_oh.float() - p_oh.float()).abs().max())
+    assert torch.equal(library_one_hot(), k_oh)
+    b_ms, b_by = bound(toks.numel() + k_oh.numel() * 2, 4 * toks.numel())
+    table["one_hot"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/reformat.cu",
+        replaces="src/repro/kernels/reformat.py:103", shape=list(k_oh.shape), max_abs_err=err,
+        match=err == 0, **timings(lambda: ops.one_hot(toks), 50, lambda: ref.one_hot_ref(toks), 10),
+        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(library_one_hot, 10)[0])
+    del k_dec, k_oh, p_oh, k_km, p_km, rows, arrays, db, packed_all
+    emit("kernels", tolerance="bit-identical (max_abs_err 0)",
+         match={k: v["match"] for k, v in table.items()},
+         call_ms={k: v["call_ms"] for k, v in table.items()},
+         shapes={k: v["shape"] for k, v in table.items()})
+    bad = [k for k, v in table.items() if not v["match"]]
+    assert not bad, f"kernels disagree with their plain versions: {bad}"
+
+    # ---- main path: SAGe_Read + SAGe_ISP through SageStore on the card -----
+    oracles = {"illumina": Oracle(src)}
+    oracles.update({p: Oracle(sf) for p, (sf, _s) in small.items()})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    store = SageStore(max_prepared=16, group_blocks=GROUP)
+    for name in ("illumina", "ont", "hifi"):
+        store.register(name, str(WORK / f"{name}.sage2"))
+    sess = store.session()
+    checked = 0
+    reset_trace_counts()
+    t0 = time.perf_counter()
+    read_lo = 7 * GROUP  # a range that starts mid-container
+    read_stats = {}
+    for fmt in ("2bit", "kmer", "onehot"):
+        rng = (read_lo, read_lo + BUCKET)
+        out = sess.read("illumina", rng, fmt, kmer_k=KMER_K)  # cold: uploads + unpacks its groups
+        torch.cuda.synchronize()
+        checked += oracles["illumina"].check(out, out["block_ids"], f"read {fmt}")
+        check_format(out, fmt)
+        bases = int(out["n_tokens"].sum())
+        w0 = time.perf_counter()
+        for _ in range(3):
+            out = sess.read("illumina", rng, fmt, kmer_k=KMER_K)
+        torch.cuda.synchronize()
+        read_stats[fmt] = {"blocks": BUCKET, "warm_bases_per_s": 3 * bases / (time.perf_counter() - w0)}
+    # SAGe_ISP: a 4096-block kmer stream, dispatch depth 2
+    n_stream, per_fetch = N_STREAM, PER_FETCH
+    stream_start = big.meta.n_blocks - n_stream - 3 * GROUP  # away from the reads' groups
+    s0 = time.perf_counter()
+    batches = list(sess.read_stream(
+        "illumina", mode="dispatch", dispatch=2, blocks_per_fetch=per_fetch, fmt="kmer",
+        kmer_k=KMER_K, start_block=stream_start, max_fetches=n_stream // per_fetch,
+    ))
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - s0
+    stream_bases = sum(int(b.data["n_tokens"].sum()) for b in batches)
+    assert sum(len(b.block_ids) for b in batches) == n_stream
+    for b in batches:
+        checked += oracles["illumina"].check(b.data, b.block_ids, "stream")
+        check_format(b.data, "kmer")
+    small_checked = {}
+    for prof in ("ont", "hifi"):
+        for fmt in ("2bit", "kmer", "onehot"):
+            out = sess.read(prof, None, fmt, kmer_k=KMER_K)
+            torch.cuda.synchronize()
+            small_checked[prof] = oracles[prof].check(out, out["block_ids"], f"{prof} {fmt}")
+            check_format(out, fmt)
+            checked += small_checked[prof]
+    counts = trace_counts()
+    main_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: counts.get(f"launch:{k}", 0) for k in table}
+    plain = {k: v for k, v in counts.items() if k.startswith("plain:")}
+    emit("main", reads=read_stats, stream={"blocks": n_stream, "blocks_per_fetch": per_fetch,
+                                             "bases": stream_bases, "seconds": stream_s,
+                                             "bases_per_s": stream_bases / stream_s},
+         small_blocks_checked=small_checked, blocks_checked_against_refdec=checked,
+         launches=launches, plain_calls=plain, group_uploads=store.io_stats["group_uploads"],
+         peak_device_bytes=peak, seconds=main_s)
+    assert not plain, f"the main path ran plain versions on the card: {plain}"
+    idle = [k for k, n in launches.items() if n == 0]
+    assert not idle, f"main path never launched: {idle}"
+    # ---- where the time goes: device busy share of a warm read and a cold stream
+    def warm_read(_i):
+        return sess.read("illumina", (read_lo, read_lo + BUCKET), "kmer", kmer_k=KMER_K)
+
+    def cold_stream(i):  # each call streams blocks no earlier phase touched
+        return list(sess.read_stream(
+            "illumina", mode="dispatch", dispatch=2, blocks_per_fetch=per_fetch, fmt="kmer",
+            kmer_k=KMER_K, start_block=N_PROFILE * (1 + i), max_fetches=N_PROFILE // per_fetch))
+
+    warm_read(0)  # the stream evicted the read's groups from the device LRU
+    windows = {"warm_read_kmer": warm_read, "cold_stream_kmer": cold_stream}
+    emit("profile", **{name: profile_window(fn) for name, fn in windows.items()})
+    for k, v in table.items():
+        v["launches"] = launches[k]
+    kernels = [{"name": k, **{f: v[f] for f in (
+        "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+        "bound_ms", "bound_by", "library_ms")}} for k, v in table.items()]
+    shutil.rmtree(WORK)
+    emit("done", seconds=time.perf_counter() - t_start)
+    print(json.dumps({"kernels": kernels}))
+    print(smi())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

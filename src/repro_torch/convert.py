@@ -1,0 +1,49 @@
+"""Carry state across from the JAX package.
+
+SAGe has no weights: its state is the encoded :class:`SageFile` and the
+prepared block-major :class:`DeviceBlocks`. These functions read the JAX
+package's objects by duck typing (numpy arrays and ``meta.to_json()``), so
+this package never imports it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.decode_torch import DeviceBlocks, host_to_tensor, resolve_device
+from repro_torch.core.format import BlockCaps, SageFile, SageMeta
+
+
+def sage_file_from_reference(sf) -> SageFile:
+    """This package's SageFile holding the same sections as ``sf`` (a JAX
+    package SageFile, or anything with ``meta.to_json()``, ``consensus2b``,
+    ``directory`` and ``streams``)."""
+    return SageFile(
+        meta=SageMeta.from_json(sf.meta.to_json()),
+        consensus2b=np.array(sf.consensus2b, dtype=np.uint32),
+        directory=np.array(sf.directory, dtype=np.int64),
+        streams={k: np.array(v, dtype=np.uint32) for k, v in sf.streams.items()},
+    )
+
+
+def device_blocks_from_reference(db, device="cuda") -> DeviceBlocks:
+    """This package's DeviceBlocks on ``device`` from a JAX package
+    DeviceBlocks: every array goes through ``np.asarray`` (host numpy or
+    device arrays alike), uint32 rows are reinterpreted as int32."""
+    dev = resolve_device(device)
+    caps = BlockCaps(**{f.name: int(getattr(db.caps, f.name)) for f in dataclasses.fields(BlockCaps)})
+    arrays: dict[str, torch.Tensor] = {}
+    for k, v in db.arrays.items():
+        a = np.asarray(v)[: db.n_blocks]  # drop any shard-padding rows
+        arrays[k] = host_to_tensor(a, dev)
+    return DeviceBlocks(
+        arrays=arrays,
+        caps=caps,
+        classes={k: tuple(int(w) for w in v) for k, v in db.classes.items()},
+        fixed_len=int(db.fixed_len),
+        n_blocks=int(db.n_blocks),
+        device=dev,
+    )

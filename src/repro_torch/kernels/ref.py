@@ -1,0 +1,32 @@
+"""Plain torch versions of every CUDA kernel of the port (the exact
+targets the kernels are held to):
+
+sage_unpack -> sage_decode.unpack_rows_plain
+sage_decode -> core.decode_torch.decode_block_arrays (batched over blocks)
+kmer_pack   -> reformat.kmer_pack_plain
+one_hot     -> reformat.one_hot_plain
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.decode_torch import DeviceBlocks, decode_block_arrays
+from repro_torch.kernels.reformat import kmer_pack_plain, one_hot_plain
+from repro_torch.kernels.sage_decode import unpack_rows_plain
+
+
+def sage_unpack_ref(packed: torch.Tensor, dicts: torch.Tensor, widths) -> dict[str, torch.Tensor]:
+    return unpack_rows_plain(packed, dicts, tuple((s, int(w)) for s, w in widths))
+
+
+def sage_decode_ref(db: DeviceBlocks) -> dict[str, torch.Tensor]:
+    return decode_block_arrays(db.arrays, caps=db.caps, classes=db.classes, fixed_len=db.fixed_len)
+
+
+def kmer_pack_ref(tokens: torch.Tensor, k: int, n_tokens=None) -> torch.Tensor:
+    return kmer_pack_plain(tokens, k, n_tokens)
+
+
+def one_hot_ref(tokens: torch.Tensor) -> torch.Tensor:
+    return one_hot_plain(tokens)

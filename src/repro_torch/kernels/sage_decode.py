@@ -1,0 +1,273 @@
+"""Codec unpack and block decode: CUDA kernels, their wrappers and the
+plain torch version of the unpack.
+
+``sage_unpack`` replaces the TPU kernel ``sage_unpack_pallas`` and
+``sage_decode_arrays`` replaces ``sage_decode_arrays`` / ``_kernel``
+(src/repro/kernels/sage_decode.py). A wrapper launches its kernel for CUDA
+tensors (sources in ``csrc/``, built at first use) and takes the plain
+version only for CPU tensors; on any other device it raises. The plain
+block decode is :func:`repro_torch.core.decode_torch.decode_block_arrays`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.codec import DESC_WORDS, ESCAPE, MODE_NIBBLE, USED_MASK
+from repro_torch.core.decode_torch import decode_block_arrays, to_i32_bits
+from repro_torch.core.format import D, STREAMS
+from repro_torch.kernels import cuda_lib
+
+OUT_KEYS = ("tokens", "read_pos", "read_rev", "read_start", "read_len", "read_corner")
+I32 = torch.int32
+_MAXCLS = 8
+_CTAS_PER_SM = 2  # persistent decode grid: a few CTAs per SM, looping over blocks
+
+
+# --------------------------------------------------------------------------
+# codec unpack (B1)
+# --------------------------------------------------------------------------
+
+def unpack_rows_plain(packed: torch.Tensor, dicts: torch.Tensor, widths) -> dict[str, torch.Tensor]:
+    """Plain torch codec unpack, batched over rows (mirrors the JAX
+    package's ``_unpack_rows_jit``). ``packed`` (n, cap) int32 bits,
+    ``dicts`` (N_STREAMS, 16) uint8, ``widths`` ((stream, W), ...)."""
+    n, cap = packed.shape
+    dev = packed.device
+    P = packed.to(torch.int64) & 0xFFFFFFFF
+    ns = len(widths)
+    desc = packed[:, :ns].to(I32)
+    used = desc & USED_MASK
+    modes = (desc >> 20) & 3
+    nesc = packed[:, ns:DESC_WORDS].to(I32)
+    sec = torch.where(modes == MODE_NIBBLE, (used + 1) // 2 + (nesc + 3) // 4, used)
+    sec_off = DESC_WORDS + torch.cat(
+        [torch.zeros((n, 1), dtype=I32, device=dev), torch.cumsum(sec, dim=1, dtype=I32)[:, :-1]],
+        dim=1,
+    )
+    lut = dicts.to(torch.int64)
+    out: dict[str, torch.Tensor] = {}
+    for si, (s, w) in enumerate(widths):
+        u = used[:, si : si + 1]
+        off = sec_off[:, si : si + 1]
+        kw = torch.arange(w, dtype=I32, device=dev)[None, :]
+        raw = torch.where(
+            kw < u, torch.gather(P, 1, (off + kw).clamp(0, cap - 1).to(torch.int64).expand(n, w)), 0
+        )
+        kb = torch.arange(4 * w, dtype=I32, device=dev)[None, :]
+        nib = (
+            torch.gather(P, 1, (off + kb // 8).clamp(0, cap - 1).to(torch.int64).expand(n, 4 * w))
+            >> (4 * (kb % 8)).to(torch.int64)
+        ) & 15
+        in_use = kb < 4 * u
+        is_esc = (nib == ESCAPE) & in_use
+        ie = is_esc.to(I32)
+        rank = torch.cumsum(ie, dim=1, dtype=I32) - ie
+        eoff = off + (u + 1) // 2
+        escb = (
+            torch.gather(P, 1, (eoff + rank // 4).clamp(0, cap - 1).to(torch.int64))
+            >> (8 * (rank % 4)).to(torch.int64)
+        ) & 255
+        byte = torch.where(is_esc, escb, lut[si][nib])
+        byte = torch.where(in_use, byte, 0)
+        shifts = 8 * torch.arange(4, dtype=torch.int64, device=dev)
+        nib_rows = (byte.reshape(n, w, 4) << shifts).sum(dim=2)
+        out[s] = to_i32_bits(torch.where(modes[:, si : si + 1] == MODE_NIBBLE, nib_rows, raw))
+    return out
+
+
+class _UnpackParams(ctypes.Structure):
+    _fields_ = [
+        ("packed", ctypes.c_void_p),
+        ("dicts", ctypes.c_void_p),
+        ("out", ctypes.c_void_p * 14),
+        ("widths", ctypes.c_int * 14),
+        ("n", ctypes.c_int),
+        ("cap", ctypes.c_int),
+        ("ns", ctypes.c_int),
+    ]
+
+
+def launch_unpack(lib, packed, dicts, outs, stream) -> int:
+    """Fill the kernel's parameter block and launch (returns the CUDA
+    error code). ``outs`` are preallocated (n, W_s) int32 rows."""
+    p = _UnpackParams()
+    p.packed = packed.data_ptr()
+    p.dicts = dicts.data_ptr()
+    for i, o in enumerate(outs):
+        p.out[i] = o.data_ptr()
+        p.widths[i] = o.shape[1]
+    p.n, p.cap = packed.shape
+    p.ns = len(outs)
+    fn = lib.sage_unpack_launch
+    fn.argtypes = [ctypes.POINTER(_UnpackParams), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn(ctypes.byref(p), stream)
+
+
+def sage_unpack(packed: torch.Tensor, dicts: torch.Tensor, widths) -> dict[str, torch.Tensor]:
+    """Unpack codec extent payloads: (n, cap_words) int32-bit rows ->
+    stream -> (n, W_s) int32-bit rows. CUDA: one CTA per extent."""
+    widths = tuple((s, int(w)) for s, w in widths)
+    if packed.dtype != I32 or packed.dim() != 2:
+        raise ValueError(f"sage_unpack: packed must be (n, cap) int32, got {packed.dtype} {tuple(packed.shape)}")
+    if dicts.dtype != torch.uint8 or dicts.dim() != 2 or dicts.shape[1] != 16 or dicts.shape[0] < len(widths):
+        raise ValueError(f"sage_unpack: dicts must be (>= {len(widths)}, 16) uint8, got {dicts.dtype} {tuple(dicts.shape)}")
+    if packed.shape[1] < DESC_WORDS:
+        raise ValueError(f"sage_unpack: rows need >= {DESC_WORDS} descriptor words")
+    if cuda_lib.on_cpu(packed, dicts):
+        cuda_lib.COUNTS["plain:sage_unpack"] += 1
+        return unpack_rows_plain(packed, dicts, widths)
+    dicts = dicts[: len(widths)].contiguous()
+    cuda_lib.require_cuda(packed, dicts, name="sage_unpack")
+    n = packed.shape[0]
+    # one allocation, stream-major, so each (n, W_s) view is contiguous
+    buf = torch.empty(n * sum(w for _s, w in widths), dtype=I32, device=packed.device)
+    parts = buf.split([n * w for _s, w in widths])
+    outs = [o.view(n, w) for o, (_s, w) in zip(parts, widths)]
+    lib = cuda_lib.lib("sage_unpack")
+    smem = lib.sage_unpack_smem_bytes(packed.shape[1], len(widths))
+    if smem > 227 * 1024:
+        raise ValueError(f"sage_unpack: cap_words {packed.shape[1]} exceeds shared memory")
+    with torch.cuda.device(packed.device):
+        rc = launch_unpack(lib, packed, dicts, outs, torch.cuda.current_stream().cuda_stream)
+    lib.sage_unpack_error_string.restype = ctypes.c_char_p
+    cuda_lib.check(rc, "sage_unpack", lib.sage_unpack_error_string)
+    cuda_lib.COUNTS["launch:sage_unpack"] += 1
+    return {s: o for (s, _w), o in zip(widths, outs)}
+
+
+# --------------------------------------------------------------------------
+# block decode (B2)
+# --------------------------------------------------------------------------
+
+class _DecodeParams(ctypes.Structure):
+    _fields_ = [
+        ("streams", ctypes.c_void_p * 14),
+        ("widths", ctypes.c_int * 14),
+        ("cons", ctypes.c_void_p),
+        ("dir", ctypes.c_void_p),
+        ("valid", ctypes.c_void_p),
+        ("cons_w", ctypes.c_int),
+        ("ndir", ctypes.c_int),
+        ("nb", ctypes.c_int),
+        ("R", ctypes.c_int), ("M", ctypes.c_int), ("I", ctypes.c_int),
+        ("U", ctypes.c_int), ("C", ctypes.c_int),
+        ("window", ctypes.c_int), ("insb", ctypes.c_int), ("escb", ctypes.c_int),
+        ("fixed_len", ctypes.c_int),
+        ("ncls", ctypes.c_int * 4),
+        ("cls_w", (ctypes.c_int * _MAXCLS) * 4),
+        ("d_n_segs", ctypes.c_int), ("d_n_reads", ctypes.c_int),
+        ("d_n_mism", ctypes.c_int), ("d_n_tokens", ctypes.c_int),
+        ("d_cons_start", ctypes.c_int), ("d_base_pos", ctypes.c_int),
+        ("tokens", ctypes.c_void_p),
+        ("read_pos", ctypes.c_void_p), ("read_rev", ctypes.c_void_p),
+        ("read_start", ctypes.c_void_p), ("read_len", ctypes.c_void_p),
+        ("read_corner", ctypes.c_void_p),
+        ("scratch", ctypes.c_void_p),
+        ("slot_ints", ctypes.c_longlong),
+    ]
+
+
+def decode_dims(caps) -> tuple[int, int, int, int, int]:
+    """(R, M, I, U, C) of the decode: caps with the >= 1 floors."""
+    return caps.segs, max(caps.mism, 1), max(caps.indel, 1), max(caps.multi, 1), caps.tokens
+
+
+def launch_decode(lib, arrays, outs, scratch, grid, *, caps, classes, fixed_len, stream) -> int:
+    """Fill the decode kernel's parameter block and launch on ``grid`` CTAs
+    (``scratch`` holds one slot per CTA). Returns the CUDA error code."""
+    p = _DecodeParams()
+    for i, s in enumerate(STREAMS):
+        p.streams[i] = arrays[s].data_ptr()
+        p.widths[i] = arrays[s].shape[1]
+    p.cons = arrays["cons"].data_ptr()
+    p.cons_w = arrays["cons"].shape[1]
+    p.dir = arrays["dir"].data_ptr()
+    p.ndir = arrays["dir"].shape[1]
+    p.valid = arrays["valid"].data_ptr() if "valid" in arrays else None
+    p.nb = arrays["dir"].shape[0]
+    p.R, p.M, p.I, p.U, p.C = decode_dims(caps)
+    p.window, p.insb, p.escb = caps.window, caps.insb, caps.escb
+    p.fixed_len = int(fixed_len)
+    for ki, kind in enumerate(("map", "len", "cnt", "mp")):
+        cw = tuple(classes[kind])
+        p.ncls[ki] = len(cw)
+        for j, w in enumerate(cw):
+            p.cls_w[ki][j] = int(w)
+    p.d_n_segs, p.d_n_reads, p.d_n_mism = D["n_segs"], D["n_reads"], D["n_mism"]
+    p.d_n_tokens, p.d_cons_start, p.d_base_pos = D["n_tokens"], D["cons_start"], D["base_pos"]
+    p.tokens = outs["tokens"].data_ptr()
+    for k in OUT_KEYS[1:]:
+        setattr(p, k, outs[k].data_ptr())
+    p.scratch = scratch.data_ptr()
+    p.slot_ints = scratch.shape[1]
+    fn = lib.sage_decode_launch
+    fn.argtypes = [ctypes.POINTER(_DecodeParams), ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn(ctypes.byref(p), grid, stream)
+
+
+def decode_slot_ints(lib, caps) -> int:
+    R, M, _I, _U, C = decode_dims(caps)
+    lib.sage_decode_slot_ints.restype = ctypes.c_longlong
+    return int(lib.sage_decode_slot_ints(R, M, C))
+
+
+def _check_decode_inputs(arrays, caps, classes) -> None:
+    nb = arrays["dir"].shape[0]
+    for k in list(STREAMS) + ["cons", "dir"]:
+        a = arrays[k]
+        if a.dtype != I32 or a.dim() != 2 or a.shape[0] != nb:
+            raise ValueError(f"sage_decode_arrays: {k} must be ({nb}, W) int32, got {a.dtype} {tuple(a.shape)}")
+        if k != "dir" and a.shape[1] < 2:
+            raise ValueError(f"sage_decode_arrays: {k} rows need >= 2 words")
+    if arrays["cons"].shape[1] * 16 < caps.window:
+        raise ValueError("sage_decode_arrays: cons rows narrower than caps.window")
+    if "valid" in arrays and tuple(arrays["valid"].shape) != (nb, 1):
+        raise ValueError("sage_decode_arrays: valid must be (nb, 1)")
+    for kind in ("map", "len", "cnt", "mp"):
+        if not 1 <= len(classes[kind]) <= _MAXCLS:
+            raise ValueError(f"sage_decode_arrays: {kind} needs 1..{_MAXCLS} width classes")
+    if caps.segs < 1 or caps.tokens < 1:
+        raise ValueError("sage_decode_arrays: caps.segs and caps.tokens must be >= 1")
+
+
+def sage_decode_arrays(
+    arrays: dict[str, torch.Tensor], *, caps, classes: dict[str, tuple[int, ...]], fixed_len: int
+) -> dict[str, torch.Tensor]:
+    """Decode block-major stream arrays (as the bucketed hot path gathers
+    them): the 6 token/read planes of :data:`OUT_KEYS`. An optional
+    ``arrays["valid"]`` (nb, 1) column masks bucket-padding lanes."""
+    names = list(STREAMS) + ["cons", "dir"] + (["valid"] if "valid" in arrays else [])
+    ins = [arrays[k] for k in names]
+    if cuda_lib.on_cpu(*ins):
+        cuda_lib.COUNTS["plain:sage_decode"] += 1
+        out = decode_block_arrays(arrays, caps=caps, classes=classes, fixed_len=fixed_len)
+        return {k: out[k] for k in OUT_KEYS}
+    arrays = {k: arrays[k] for k in names}
+    if "valid" in arrays:
+        arrays["valid"] = arrays["valid"].to(I32).contiguous()
+    _check_decode_inputs(arrays, caps, classes)
+    cuda_lib.require_cuda(*arrays.values(), name="sage_decode_arrays")
+    dev = arrays["dir"].device
+    nb = arrays["dir"].shape[0]
+    R, _M, _I, _U, C = decode_dims(caps)
+    outs = {"tokens": torch.empty((nb, C), dtype=torch.int8, device=dev)}
+    for k in OUT_KEYS[1:]:
+        outs[k] = torch.empty((nb, R), dtype=I32, device=dev)
+    if nb == 0:
+        return outs
+    lib = cuda_lib.lib("sage_decode")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = min(nb, _CTAS_PER_SM * n_sm)
+    scratch = torch.empty((grid, decode_slot_ints(lib, caps)), dtype=I32, device=dev)
+    with torch.cuda.device(dev):
+        rc = launch_decode(lib, arrays, outs, scratch, grid, caps=caps, classes=classes,
+                           fixed_len=fixed_len, stream=torch.cuda.current_stream().cuda_stream)
+    lib.sage_decode_error_string.restype = ctypes.c_char_p
+    cuda_lib.check(rc, "sage_decode_arrays", lib.sage_decode_error_string)
+    cuda_lib.COUNTS["launch:sage_decode"] += 1
+    return outs
