@@ -1,6 +1,6 @@
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: SAGe_Read and
-SAGe_ISP through the hand-written CUDA kernels, checked against the
-sequential numpy decoder.
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: SAGe_Read, SAGe_ISP
+and the LM token pipeline through the hand-written CUDA kernels, checked
+against the sequential numpy decoder.
 
     python3 chip_smoke.py
 
@@ -13,15 +13,25 @@ Phases, each printing one JSON line:
            sets at the test fixtures' size in their own containers
   kernels  each kernel against its plain torch version on the card at the
            main path's shapes, timed with CUDA events beside its bound
-           (device time, and the call time that includes launch overhead)
+           (device time, and the call time that includes launch overhead);
+           the fused kernel B5 in each format on a 256-lane bucket of
+           permuted, repeated and invalid lanes, also against B2 -> B3 / B4
   main     SageStore(device="cuda"): session.read of 256-block ranges in
            2bit / kmer / onehot, a 4096-block dispatch-mode kmer stream, and
-           every ONT and HiFi block in all three formats; every decoded block
-           is held read for read against repro_torch.core.refdec, and the
-           launch counts of the run show the path went through every kernel
-  profile  a warm 256-block read and a cold 1024-block stream, each timed on
-           the host clock and then repeated under torch.profiler: device time
-           by kernel and the device busy share
+           every ONT and HiFi block in all three formats; then a fused
+           session: a 256-block read in each format (one B5 launch each, no
+           B2 / B3 / B4), a 4096-block pipelined kmer stream, and 16
+           SageTokenPipeline batches plus 8 restored from its cursor. Every
+           decoded block is held read for read against
+           repro_torch.core.refdec, every batch against refdec's k-mer
+           stream, and the launch counts of the run show the path went
+           through every kernel
+  profile  5 warm 256-block reads (two-step and fused) and a cold
+           1024-block stream (dispatch mode, and pipelined on a fused
+           session), each timed on the host clock and then repeated under
+           torch.profiler: device time by kernel, the device busy share, the
+           host->device copy time that overlapped a kernel, and the
+           pipelined stream's stage seconds and overlap_fraction
 Then the kernel table as one JSON line, the card's name and power limit,
 and the final {"ok": true, ...} line. Any failure raises (exit code != 0).
 """
@@ -45,10 +55,13 @@ try:
     import torch
 
     from repro_torch.core import SageStore
+    from repro_torch.core.api import kmer_vocab_size
     from repro_torch.core.bitio import unpack_2bit
-    from repro_torch.core.blocks import block_row_widths, localize_directory
+    from repro_torch.core.blocks import block_row_widths, localize_directory, pad_block_ids
     from repro_torch.core.decode_torch import (
         DeviceBlocks,
+        _fill_counts,
+        gather_block_arrays,
         host_to_tensor,
         reset_trace_counts,
         trace_counts,
@@ -57,6 +70,7 @@ try:
     from repro_torch.core.format import D, STREAMS, SageFile
     from repro_torch.core.layout import SageContainerV2, write_v2
     from repro_torch.core.refdec import decode_block
+    from repro_torch.data import SageTokenPipeline
     from repro_torch.genomics.synth import make_reference, sample_read_set
     from repro_torch.kernels import cuda_lib, ops, ref
 except ImportError as e:  # run outside a checkout of the repository
@@ -74,7 +88,13 @@ GROUP = 32  # store group_blocks: one codec upload + unpack launch per group
 BUCKET = 256  # blocks per session.read (one decode bucket)
 N_STREAM, PER_FETCH = 4096, 64  # SAGe_ISP stream length and fetch size
 N_PROFILE = 1024  # blocks of each profiled cold stream; they start at 1x and 2x this
+PIPE_START = 8192  # the fused session's 4096-block pipelined stream starts here
+PIPE_PROFILE = 16384  # the profiled pipelined streams start at this + 0x / 1x N_PROFILE
+FUSED_READ = 16 * GROUP  # the fused session's 256-block reads start here
+TOKENS = dict(batch=8, seq_len=2048, n_batches=16, restore_after=8)
+WARM_READS = 5  # reads in each profiled warm-read window
 KMER_K = 4
+FMTS = ("2bit", "kmer", "onehot")
 WORK = ROOT / "build" / "smoke_data"
 
 
@@ -120,12 +140,32 @@ def timings(kernel, iters: int, plain, plain_iters: int) -> dict:
     return dict(ms=ms, call_ms=call_ms, plain_ms=cuda_ms(plain, plain_iters, warmup=1)[0])
 
 
+def copy_overlap_us(events) -> tuple[float, float]:
+    """(host->device copy time, the part of it that ran while a kernel ran)
+    over the device events of a profile, in microseconds."""
+    from torch.autograd import DeviceType
+
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    copies = [(e.time_range.start, e.time_range.end) for e in dev if e.name.startswith("Memcpy HtoD")]
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in dev
+                     if not e.name.startswith(("Memcpy", "Memset")))
+    merged: list[list[float]] = []  # union of kernel intervals
+    for a, b in kernels:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    both = sum(max(0.0, min(b, kb) - max(a, ka)) for a, b in copies for ka, kb in merged)
+    return sum(b - a for a, b in copies), both
+
+
 def profile_window(fn) -> dict:
     """Run ``fn(0)`` on the host clock and ``fn(1)``, the same work, under
     torch.profiler: the wall time of the first, the device time of every
-    kernel and copy by name in the second, and the device busy share (device
+    kernel and copy by name in the second, the device busy share (device
     time over the unprofiled wall time; null when the profiler saw no device
-    activity)."""
+    activity), and how much of the host->device copy time overlapped a
+    kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -140,8 +180,10 @@ def profile_window(fn) -> dict:
     rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
+    htod_us, htod_under_kernel_us = copy_overlap_us(prof.events())
     return {"wall_ms": wall_us / 1e3, "device_ms": busy_us / 1e3,
             "device_busy_share": busy_us / wall_us if rows else None,
+            "htod_ms": htod_us / 1e3, "htod_overlapping_kernels_ms": htod_under_kernel_us / 1e3,
             "device_ms_by_name": [{"name": n[:60], "ms": t / 1e3, "count": c} for n, t, c in rows[:8]]}
 
 
@@ -219,10 +261,23 @@ class Oracle:
     def __init__(self, sf: SageFile) -> None:
         cons = unpack_2bit(sf.consensus2b, sf.meta.cons_len)
         self.n_src = sf.meta.n_blocks
-        self.want = [
-            sorted(bytes(np.asarray(r.seq, np.uint8)) for r in decode_block(sf, b, cons))
-            for b in range(self.n_src)
-        ]
+        self.C = sf.meta.caps.tokens
+        reads = [decode_block(sf, b, cons) for b in range(self.n_src)]
+        self.want = [sorted(bytes(np.asarray(r.seq, np.uint8)) for r in rs) for rs in reads]
+        # each block's token row: its reads back to back, in block order
+        self.rows = [np.concatenate([np.asarray(r.seq, np.int8) for r in rs]) for rs in reads]
+
+    def kmer_stream(self, block_ids, k: int) -> np.ndarray:
+        """refdec's k-mer stream of ``block_ids`` in order, PAD groups
+        dropped (the token pipeline's contract)."""
+        parts = []
+        for b in np.asarray(block_ids):
+            row = self.rows[source_block(b, self.n_src)]
+            toks = np.full(self.C, 4, np.int8)
+            toks[: row.size] = row
+            km = ref.kmer_pack_ref(torch.from_numpy(toks)[None], k, torch.tensor([row.size]))
+            parts.append(km[0, : row.size // k].numpy())
+        return np.concatenate(parts)
 
     def check(self, out: dict, block_ids: np.ndarray, what: str) -> int:
         toks = out["tokens"].cpu().numpy()
@@ -233,6 +288,12 @@ class Oracle:
             if got != self.want[source_block(b, self.n_src)]:
                 raise AssertionError(f"{what}: block {int(b)} disagrees with refdec")
         return int(len(block_ids))
+
+
+def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    if a.is_floating_point():
+        return float((a.float() - b.float()).abs().max())
+    return float((a.long() - b.long()).abs().max())
 
 
 def check_format(out: dict, fmt: str) -> None:
@@ -371,7 +432,46 @@ def main() -> None:
         replaces="src/repro/kernels/reformat.py:103", shape=list(k_oh.shape), max_abs_err=err,
         match=err == 0, **timings(lambda: ops.one_hot(toks), 50, lambda: ref.one_hot_ref(toks), 10),
         bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(library_one_hot, 10)[0])
-    del k_dec, k_oh, p_oh, k_km, p_km, rows, arrays, db, packed_all
+    del k_dec, k_oh, p_oh, k_km, p_km
+
+    # B5 fused gather + decode + format: the bucket's rows are the resident
+    # arrays; 208 lanes permuted plus 16 repeats pad to 256 with 32 invalid
+    res = DeviceBlocks({k: v for k, v in arrays.items() if k != "valid"}, caps, classes,
+                       fixed_len, BUCKET, dev)
+    lanes = np.random.default_rng(0).permutation(BUCKET)[: BUCKET * 13 // 16]
+    f_ids, f_valid = pad_block_ids(np.concatenate([lanes, lanes[: BUCKET // 16]]))
+    sub = gather_block_arrays(res, f_ids, f_valid)
+    two = _fill_counts(dict(ops.sage_decode(DeviceBlocks(sub, caps, classes, fixed_len, BUCKET, dev))), sub)
+    del sub
+    lane_tokens = int(two["n_tokens"].sum())
+    row_bytes = sum(v.shape[1] * v.element_size() for v in res.arrays.values())
+    G = C // KMER_K
+    for fmt in FMTS:
+        k_out = ops.sage_fused(res, f_ids, f_valid, fmt, KMER_K)
+        p_out = ref.sage_fused_ref(res, f_ids, f_valid, fmt, KMER_K)
+        want = dict(two)
+        fmt_bytes, fmt_ops = 0, 0
+        if fmt == "kmer":
+            want["kmer"] = ops.kmer_tokens(two["tokens"], KMER_K, two["n_tokens"])
+            fmt_bytes, fmt_ops = BUCKET * G * 4, 3 * KMER_K * BUCKET * G
+        elif fmt == "onehot":
+            want["onehot"] = ops.one_hot(two["tokens"])
+            fmt_bytes, fmt_ops = BUCKET * C * 8, 4 * BUCKET * C
+        torch.cuda.synchronize()
+        assert sorted(k_out) == sorted(p_out) == sorted(want), (sorted(k_out), sorted(want))
+        err = max(max_abs_err(k_out[k], other[k]) for other in (p_out, want) for k in k_out)
+        in_bytes = len(np.unique(f_ids)) * row_bytes + f_ids.size * 8
+        out_bytes = BUCKET * C + 5 * BUCKET * R * 4 + 2 * BUCKET * 4 + fmt_bytes
+        b_ms, b_by = bound(in_bytes + out_bytes, 20 * lane_tokens + fmt_ops)
+        table[f"sage_fused_{fmt}"] = dict(
+            route="cuda", source="src/repro_torch/kernels/csrc/sage_decode.cu",
+            replaces="src/repro/kernels/sage_decode.py:157", shape=[BUCKET, C], max_abs_err=err,
+            match=err == 0,
+            **timings(lambda fmt=fmt: ops.sage_fused(res, f_ids, f_valid, fmt, KMER_K), 10,
+                      lambda fmt=fmt: ref.sage_fused_ref(res, f_ids, f_valid, fmt, KMER_K), 2),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        del k_out, p_out, want
+    del two, res, rows, arrays, db, packed_all
     emit("kernels", tolerance="bit-identical (max_abs_err 0)",
          match={k: v["match"] for k, v in table.items()},
          call_ms={k: v["call_ms"] for k, v in table.items()},
@@ -428,32 +528,149 @@ def main() -> None:
             small_checked[prof] = oracles[prof].check(out, out["block_ids"], f"{prof} {fmt}")
             check_format(out, fmt)
             checked += small_checked[prof]
+
+    # ---- fused session: B5 reads, a pipelined stream, the token pipeline ----
+    sess_f = store.session(fused=True)
+    fused_launches = dict.fromkeys(FMTS, 0)
+    two_step = ("launch:sage_decode", "launch:kmer_pack", "launch:one_hot")
+
+    def fused_run(fmt, fn):
+        """Run ``fn`` and return its result with the counts it moved; its
+        B5 launches count toward ``fmt``, and it launches no B2 / B3 / B4."""
+        before = trace_counts()
+        result = fn()
+        diff = {k: v - before.get(k, 0) for k, v in trace_counts().items() if v != before.get(k, 0)}
+        fused_launches[fmt] += diff.get("launch:sage_fused", 0)
+        assert not any(diff.get(k) for k in two_step), f"a fused {fmt} run launched {diff}"
+        return result, diff
+
+    fused_reads = {}
+    rng = (FUSED_READ, FUSED_READ + BUCKET)
+    for fmt in FMTS:
+        out, diff = fused_run(fmt, lambda: sess_f.read("illumina", rng, fmt, kmer_k=KMER_K))
+        torch.cuda.synchronize()
+        assert diff.get("launch:sage_fused") == 1, f"fused {fmt} read: {diff}"
+        checked += oracles["illumina"].check(out, out["block_ids"], f"fused read {fmt}")
+        check_format(out, fmt)
+        bases = int(out["n_tokens"].sum())
+        w0 = time.perf_counter()
+        for _ in range(3):
+            out, _d = fused_run(fmt, lambda: sess_f.read("illumina", rng, fmt, kmer_k=KMER_K))
+        torch.cuda.synchronize()
+        fused_reads[fmt] = {"blocks": BUCKET, "cold_read_counts": diff,
+                            "warm_bases_per_s": 3 * bases / (time.perf_counter() - w0)}
+
+    def pipelined(start: int, n_blocks: int):
+        with sess_f.read_stream(
+            "illumina", mode="pipelined", dispatch=2, readahead=2, blocks_per_fetch=per_fetch,
+            fmt="kmer", kmer_k=KMER_K, start_block=start, max_fetches=n_blocks // per_fetch,
+        ) as st:
+            got = list(st)
+        return got, st.stats.to_dict()
+
+    p0 = time.perf_counter()
+    (pbatches, pstats), _d = fused_run("kmer", lambda: pipelined(PIPE_START, N_STREAM))
+    torch.cuda.synchronize()
+    pipe_s = time.perf_counter() - p0
+    assert sum(len(b.block_ids) for b in pbatches) == N_STREAM
+    pipe_bases = sum(int(b.data["n_tokens"].sum()) for b in pbatches)
+    for b in pbatches:
+        checked += oracles["illumina"].check(b.data, b.block_ids, "pipelined stream")
+        check_format(b.data, "kmer")
+    del pbatches
+
+    tp = TOKENS
+    need = tp["batch"] * (tp["seq_len"] + 1)
+
+    def token_pipeline():
+        def make():
+            return SageTokenPipeline("illumina", vocab_size=kmer_vocab_size(KMER_K), batch=tp["batch"],
+                                     seq_len=tp["seq_len"], store=store, stream_mode="pipelined")
+        pl = make()
+        assert pl.k == KMER_K
+        it, got = pl.batches(), []
+        for i in range(tp["n_batches"]):
+            got.append(next(it))
+            if i + 1 == tp["restore_after"]:
+                state = pl.state()
+        transfers = dict(pl.transfer_stats)
+        pl.close()
+        pl2 = make()
+        pl2.restore(state)
+        it2 = pl2.batches()
+        again = [next(it2) for _ in range(tp["n_batches"] - tp["restore_after"])]
+        pl2.close()
+        return got, again, transfers, state
+
+    t_tok = time.perf_counter()
+    (tbatches, again, transfers, state), _d = fused_run("kmer", token_pipeline)
+    t_tok = time.perf_counter() - t_tok
+    kpb = rdr.directory[:, D["n_tokens"]] // KMER_K
+    n_tok_blocks = int(np.searchsorted(np.cumsum(kpb), tp["n_batches"] * need)) + 1
+    flat = oracles["illumina"].kmer_stream(np.arange(n_tok_blocks), KMER_K)
+    for i, b in enumerate(tbatches):
+        want = flat[i * need:(i + 1) * need].reshape(tp["batch"], tp["seq_len"] + 1)
+        assert np.array_equal(b["tokens"], want[:, :-1]) and np.array_equal(b["labels"], want[:, 1:]), \
+            f"token pipeline batch {i} disagrees with refdec's k-mer stream"
+    for j, b in enumerate(again):
+        ref_b = tbatches[tp["restore_after"] + j]
+        assert all(np.array_equal(b[k], ref_b[k]) for k in ("tokens", "labels")), f"restored batch {j}"
+    assert transfers["host_transfers"] == tp["n_batches"], transfers
+    assert state["cursor"]["consumed"] == tp["restore_after"] * need, state
+
     counts = trace_counts()
     main_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    launches = {k: counts.get(f"launch:{k}", 0) for k in table}
+    launches = {k: counts.get(f"launch:{k}", 0) for k in table if not k.startswith("sage_fused_")}
+    launches.update({f"sage_fused_{f}": n for f, n in fused_launches.items()})
+    assert sum(fused_launches.values()) == counts.get("launch:sage_fused", 0), counts
     plain = {k: v for k, v in counts.items() if k.startswith("plain:")}
     emit("main", reads=read_stats, stream={"blocks": n_stream, "blocks_per_fetch": per_fetch,
                                              "bases": stream_bases, "seconds": stream_s,
                                              "bases_per_s": stream_bases / stream_s},
-         small_blocks_checked=small_checked, blocks_checked_against_refdec=checked,
+         small_blocks_checked=small_checked,
+         fused_reads=fused_reads,
+         pipelined_stream={"blocks": N_STREAM, "blocks_per_fetch": per_fetch, "dispatch": 2,
+                           "readahead": 2, "bases": pipe_bases, "seconds": pipe_s,
+                           "bases_per_s": pipe_bases / pipe_s, "stats": pstats},
+         token_pipeline={"batches": len(tbatches), "restored_batches": len(again),
+                         "blocks": n_tok_blocks, "seconds": t_tok, "transfer_stats": transfers},
+         blocks_checked_against_refdec=checked,
          launches=launches, plain_calls=plain, group_uploads=store.io_stats["group_uploads"],
          peak_device_bytes=peak, seconds=main_s)
     assert not plain, f"the main path ran plain versions on the card: {plain}"
     idle = [k for k, n in launches.items() if n == 0]
     assert not idle, f"main path never launched: {idle}"
     # ---- where the time goes: device busy share of a warm read and a cold stream
-    def warm_read(_i):
-        return sess.read("illumina", (read_lo, read_lo + BUCKET), "kmer", kmer_k=KMER_K)
+    def warm_read(_i):  # WARM_READS reads of one resident range
+        for _ in range(WARM_READS):
+            out = sess.read("illumina", (read_lo, read_lo + BUCKET), "kmer", kmer_k=KMER_K)
+        return out
 
     def cold_stream(i):  # each call streams blocks no earlier phase touched
         return list(sess.read_stream(
             "illumina", mode="dispatch", dispatch=2, blocks_per_fetch=per_fetch, fmt="kmer",
             kmer_k=KMER_K, start_block=N_PROFILE * (1 + i), max_fetches=N_PROFILE // per_fetch))
 
-    warm_read(0)  # the stream evicted the read's groups from the device LRU
-    windows = {"warm_read_kmer": warm_read, "cold_stream_kmer": cold_stream}
-    emit("profile", **{name: profile_window(fn) for name, fn in windows.items()})
+    def warm_fused_read(_i):
+        for _ in range(WARM_READS):
+            out = sess_f.read("illumina", (FUSED_READ, FUSED_READ + BUCKET), "kmer", kmer_k=KMER_K)
+        return out
+
+    pipe_stats = {}
+
+    def cold_pipelined(i):  # a fused session's pipelined stream, on blocks no earlier phase touched
+        got, pipe_stats[i] = pipelined(PIPE_PROFILE + N_PROFILE * i, N_PROFILE)
+        return got
+
+    warm_read(0)  # the streams evicted the reads' groups from the device LRU
+    warm_fused_read(0)
+    windows = {"warm_read_kmer": warm_read, "warm_fused_read_kmer": warm_fused_read,
+               "cold_stream_kmer": cold_stream, "cold_pipelined_fused_kmer": cold_pipelined}
+    prof = {name: profile_window(fn) for name, fn in windows.items()}
+    prof["cold_pipelined_fused_kmer"]["stream_stats"] = pipe_stats[0]
+    prof["cold_pipelined_fused_kmer"]["stream_stats_profiled"] = pipe_stats[1]
+    emit("profile", **prof)
     for k, v in table.items():
         v["launches"] = launches[k]
     kernels = [{"name": k, **{f: v[f] for f in (

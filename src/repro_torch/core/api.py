@@ -26,6 +26,7 @@ from repro_torch.core.decode_torch import (
     DeviceBlocks,
     decode_blocks_bucketed,
     prepare_device_blocks,
+    register_format_fuser,
 )
 from repro_torch.core.encoder import SageEncoder
 from repro_torch.core.format import SageFile
@@ -153,6 +154,15 @@ def apply_format(
 register_format(FormatSpec("2bit", "tokens", None, doc="int8 base codes 0..3, PAD=4"))
 register_format(FormatSpec("onehot", "onehot", _apply_one_hot, doc="(.., C, 4) bf16 one-hot"))
 register_format(FormatSpec("kmer", "kmer", _apply_kmer, requires_k=True, doc="packed k-mer LM ids"))
+
+# fusers for the single-launch decode+format path (fused sessions): the same
+# expressions as the two-step appliers above. The fused kernel B5 computes
+# these three itself as its epilogues, bit for bit; formats registered later
+# with a fuser run it on B5's 2bit output, and formats without one take the
+# two-step path.
+register_format_fuser("2bit", "tokens", None)
+register_format_fuser("onehot", "onehot", lambda dec, kmer_k: one_hot_bases(dec["tokens"]))
+register_format_fuser("kmer", "kmer", lambda dec, kmer_k: kmer_pack(dec["tokens"], kmer_k, dec["n_tokens"]))
 
 
 # -- one-shot commands (compat wrappers; consumers use SageStore) -----------

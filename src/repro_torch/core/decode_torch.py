@@ -37,9 +37,10 @@ from repro_torch.core.format import D, STREAMS, SageFile
 from repro_torch.kernels import cuda_lib
 
 __all__ = [
-    "PAD_BASE", "DeviceBlocks", "bucket_size", "decode_block_arrays",
+    "PAD_BASE", "DeviceBlocks", "Uploader", "bucket_size", "decode_block_arrays",
     "decode_blocks_bucketed", "decode_blocks_padded", "extract_fields",
-    "gather_block_arrays", "pad_block_ids", "prepare_device_blocks",
+    "fused_decode_blocks_bucketed", "fused_format_supported", "gather_block_arrays",
+    "pad_block_ids", "prepare_device_blocks", "register_format_fuser",
     "reset_trace_counts", "resolve_device", "stream_bits", "trace_counts",
     "unpack_block_rows",
 ]
@@ -353,13 +354,48 @@ def decode_block_arrays(
 # block-major layout, resident on a device
 # --------------------------------------------------------------------------
 
-def host_to_tensor(a: np.ndarray, device) -> torch.Tensor:
-    """numpy block rows -> torch tensor on ``device``; uint32 words are
+def _host_rows(a) -> np.ndarray:
+    """numpy rows as a torch-compatible array: contiguous, with uint32 words
     reinterpreted as int32 (same bits)."""
     a = np.ascontiguousarray(np.asarray(a))
-    if a.dtype == np.uint32:
-        a = a.view(np.int32)
-    return torch.from_numpy(a).to(device)
+    return a.view(np.int32) if a.dtype == np.uint32 else a
+
+
+def host_to_tensor(a: np.ndarray, device) -> torch.Tensor:
+    """numpy block rows -> torch tensor on ``device`` (a plain blocking
+    copy); uint32 words are reinterpreted as int32 (same bits)."""
+    return torch.from_numpy(_host_rows(a)).to(device)
+
+
+class Uploader:
+    """Host -> device copies of one store (or one caller), on its device.
+
+    On a CUDA device each call stages the host arrays in pinned memory and
+    copies them with ``non_blocking=True`` on the uploader's own copy
+    stream; the stream current at the call (the compute stream) waits on an
+    event recorded after the copies, and every copy is ``record_stream``-ed
+    on the compute stream, so the caching allocator keeps its memory until
+    the kernels reading it have run. The host never waits for the device.
+    On the CPU the arrays become tensors in place, with no stream."""
+
+    def __init__(self, device) -> None:
+        self.device = resolve_device(device)
+        self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+
+    def __call__(self, *arrays) -> list[torch.Tensor]:
+        hosts = [torch.from_numpy(_host_rows(a)) for a in arrays]
+        if self.stream is None:
+            return hosts
+        compute = torch.cuda.current_stream(self.device)
+        pinned = [h.pin_memory() for h in hosts]
+        with torch.cuda.stream(self.stream):
+            outs = [torch.empty(h.shape, dtype=h.dtype, device=self.device) for h in pinned]
+            for o, h in zip(outs, pinned):
+                o.copy_(h, non_blocking=True)
+        compute.wait_event(self.stream.record_event())
+        for o in outs:
+            o.record_stream(compute)
+        return outs
 
 
 @dataclasses.dataclass
@@ -369,7 +405,8 @@ class DeviceBlocks:
     ``arrays`` holds host numpy right after :func:`prepare_device_blocks`;
     :meth:`to` moves every array to a torch device once (uint32 rows as
     int32 bits), after which ranged reads gather and decode with no host
-    round trip. ``device`` is None while the arrays are host numpy."""
+    round trip. ``device`` is None while the arrays are host numpy;
+    ``uploader`` carries the small per-read index arrays to ``device``."""
 
     arrays: dict[str, Any]
     caps: Any
@@ -377,6 +414,7 @@ class DeviceBlocks:
     fixed_len: int
     n_blocks: int
     device: Optional[torch.device] = None
+    uploader: Optional[Uploader] = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def on_device(self) -> bool:
@@ -385,16 +423,23 @@ class DeviceBlocks:
     def block(self, bi: int) -> dict[str, Any]:
         return {k: v[bi] for k, v in self.arrays.items()}
 
-    def to(self, device) -> "DeviceBlocks":
-        """Copy on ``device`` (no-op when already there)."""
+    def upload(self, *arrays) -> list[torch.Tensor]:
+        """Host arrays onto this residency's device (see :class:`Uploader`)."""
+        if self.uploader is None:
+            self.uploader = Uploader(self.device)
+        return self.uploader(*arrays)
+
+    def to(self, device, uploader: Optional[Uploader] = None) -> "DeviceBlocks":
+        """Copy on ``device`` (no-op when already there), through
+        ``uploader`` (a new one of ``device`` when None)."""
         dev = resolve_device(device)
         if self.device == dev:
             return self
-        arrays = {
-            k: (v.to(dev) if isinstance(v, torch.Tensor) else host_to_tensor(v, dev))
-            for k, v in self.arrays.items()
-        }
-        return dataclasses.replace(self, arrays=arrays, device=dev)
+        up = uploader if uploader is not None else Uploader(dev)
+        host = [k for k, v in self.arrays.items() if not isinstance(v, torch.Tensor)]
+        uploaded = dict(zip(host, up(*(self.arrays[k] for k in host))))
+        arrays = {k: uploaded[k] if k in uploaded else v.to(dev) for k, v in self.arrays.items()}
+        return dataclasses.replace(self, arrays=arrays, device=dev, uploader=up)
 
 
 def prepare_device_blocks(sf: SageFile) -> DeviceBlocks:
@@ -430,10 +475,9 @@ def unpack_block_rows(packed: torch.Tensor, dicts: torch.Tensor, widths) -> dict
 def gather_block_arrays(db: DeviceBlocks, ids: np.ndarray, valid: np.ndarray) -> dict[str, torch.Tensor]:
     """Gather a padded block-id set out of resident arrays, on their device,
     plus the (B, 1) validity column the masked decoders consume."""
-    dev = db.device
-    idx = torch.as_tensor(np.asarray(ids, dtype=np.int64), device=dev)
-    sub = {k: v.index_select(0, idx) for k, v in db.arrays.items()}
-    sub["valid"] = torch.as_tensor(np.asarray(valid, dtype=np.int32), device=dev)[:, None]
+    idx, v = db.upload(np.asarray(ids, dtype=np.int64), np.asarray(valid, dtype=np.int32)[:, None])
+    sub = {k: a.index_select(0, idx) for k, a in db.arrays.items()}
+    sub["valid"] = v
     return sub
 
 
@@ -497,6 +541,69 @@ def decode_blocks_bucketed(
     out = decode_blocks_padded(db, padded, valid)
     if postprocess is not None:
         out = postprocess(out)
+    if padded.size == ids.size:
+        return out
+    return {k: v[: ids.size] for k, v in out.items()}
+
+
+# --------------------------------------------------------------------------
+# fused decode: gather + decode + format in ONE launch
+# --------------------------------------------------------------------------
+# Formats opt in through a FUSER registry: ``fn(dec, kmer_k) -> tensor`` maps
+# the padded decode dict to the format's output. The three built-in formats
+# (2bit, kmer, onehot) are epilogues of the fused kernel B5 itself, and their
+# fusers (repro_torch.core.api) state what the epilogue computes; any other
+# format with a fuser runs it as torch ops on B5's 2bit output, and a format
+# without one takes the two-step path. There is no path switch: CUDA
+# tensors launch B5, CPU tensors take its plain version.
+
+#: fmt name -> (out_key, fuser fn | None); None = decode IS the format (2bit)
+_FORMAT_FUSERS: dict[str, tuple[str, Optional[Callable]]] = {}
+
+
+def register_format_fuser(name: str, out_key: str, fn: Optional[Callable] = None) -> None:
+    """Register ``fmt``'s fused formatter: ``fn(dec, kmer_k) -> tensor``
+    over the padded decode dict. ``fn=None`` marks a format whose output is
+    the decode itself (2bit)."""
+    _FORMAT_FUSERS[name] = (out_key, fn)
+
+
+def fused_format_supported(name: str) -> bool:
+    return name in _FORMAT_FUSERS
+
+
+def fused_decode_blocks_bucketed(
+    db: DeviceBlocks,
+    ids: np.ndarray,
+    *,
+    fmt_name: str,
+    kmer_k: Optional[int] = None,
+) -> dict[str, torch.Tensor]:
+    """Single-launch bucketed decode+format: the fused twin of
+    ``decode_blocks_bucketed(..., postprocess=apply_format)``, with the same
+    pad, mask and slice steps and bit-identical outputs."""
+    from repro_torch.kernels.sage_decode import FUSED_EPILOGUES, sage_fused_decode
+
+    if fmt_name not in _FORMAT_FUSERS:
+        raise KeyError(
+            f"format {fmt_name!r} has no registered fuser; "
+            f"use the two-step decode path"
+        )
+    out_key, fn = _FORMAT_FUSERS[fmt_name]
+    epilogue = fmt_name if fmt_name in FUSED_EPILOGUES else "2bit"
+    ids = np.asarray(ids, dtype=np.int64)
+    if ids.size == 0:
+        out = empty_decode(db.caps, db.device)
+        if fn is not None:
+            out[out_key] = fn(out, kmer_k)
+        return out
+    padded, valid = pad_block_ids(ids)
+    out = sage_fused_decode(
+        db.arrays, padded, valid, caps=db.caps, classes=db.classes, fixed_len=db.fixed_len,
+        fmt=epilogue, kmer_k=kmer_k, upload=db.upload,
+    )
+    if epilogue != fmt_name and fn is not None:
+        out[out_key] = fn(out, kmer_k)
     if padded.size == ids.size:
         return out
     return {k: v[: ids.size] for k, v in out.items()}

@@ -13,9 +13,10 @@ A store registers many datasets by name (``SageFile`` objects or lazy paths)
 and keeps an LRU of prepared :class:`DeviceBlocks` so hot datasets stay
 resident on the store's device (``device="cuda"`` by default; ``"cpu"`` runs
 the plain torch versions of the kernels). On a codec container the hot path
-is: ranged extent read (host) -> upload -> codec unpack kernel -> on-device
-block gather -> block decode kernel -> reformat kernel, with no host round
-trip between the device stages.
+is: ranged extent read (host) -> pinned, non-blocking upload -> codec
+unpack kernel -> on-device block gather -> block decode kernel -> reformat
+kernel, with no host round trip between the device stages; a fused session
+(``session(fused=True)``) runs gather, decode and format as one kernel.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import dataclasses
 import os
 import queue
 import threading
+import weakref
 from collections import OrderedDict, deque
 from pathlib import Path
 from typing import Callable, Iterator, Optional, Sequence, Union
@@ -31,13 +33,15 @@ from typing import Callable, Iterator, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from repro_torch.core.api import apply_format, get_format
+from repro_torch.core.api import apply_format, available_formats, get_format
 from repro_torch.core.bitio import unpack_2bit_batch
 from repro_torch.core.blocks import block_row_widths, localize_directory
 from repro_torch.core.decode_torch import (
     DeviceBlocks,
+    Uploader,
     decode_blocks_bucketed,
-    host_to_tensor,
+    fused_decode_blocks_bucketed,
+    fused_format_supported,
     prepare_device_blocks,
     resolve_device,
     unpack_block_rows,
@@ -96,7 +100,9 @@ class SageStore:
 
     ``device`` is where prepared blocks live and decode runs: ``"cuda"``
     (default; raises ``RuntimeError`` when no card is present) runs the
-    CUDA kernels, ``"cpu"`` their plain torch versions.
+    CUDA kernels, ``"cpu"`` their plain torch versions. ``uploader`` moves
+    every host array of the store to the device (pinned memory, one copy
+    stream of the store's own, see :class:`Uploader`).
 
     Residency is **block-granular** for out-of-core (v2 block-extent)
     datasets: the device LRU keys on ``(dataset, block_group)`` — groups of
@@ -135,6 +141,22 @@ class SageStore:
         self._io = new_io_stats()
         self._io["group_uploads"] = 0
         self._io["stale_retries"] = 0
+        for k in (
+            "stream_fetches", "stream_io_groups", "stream_slot_releases",
+            "stream_inflight_hwm", "stream_slot_hwm",
+        ):
+            self._io[k] = 0
+        for k in (
+            "stream_io_seconds", "stream_upload_seconds",
+            "stream_dispatch_seconds", "stream_consume_seconds",
+            "stream_wall_seconds",
+        ):
+            self._io[k] = 0.0
+        self.uploader = Uploader(self.device)
+        # codec dictionaries on the device, uploaded once per reader
+        self._device_dicts: "weakref.WeakKeyDictionary[SageContainerV2, torch.Tensor]" = (
+            weakref.WeakKeyDictionary()
+        )
         self._extent_cache = HostExtentCache(cache_budget)
         self._cache_stats: dict[str, dict[str, int]] = {}
         self._quarantine: dict[str, set[int]] = {}
@@ -422,6 +444,16 @@ class SageStore:
         ``transfer_stats``. Snapshot; mutate via ``reset_io_stats``."""
         d = dict(self._io)
         d.update(self._extent_cache.stats)
+        stage = (
+            d["stream_io_seconds"] + d["stream_upload_seconds"]
+            + d["stream_dispatch_seconds"] + d["stream_consume_seconds"]
+        )
+        # overlap of the pipelined stream's stages: 1 - wall/sum(stages) is 0
+        # for a fully serial pipeline and approaches 1 - 1/n_stages when
+        # every stage hides behind the slowest one
+        d["stream_overlap_fraction"] = (
+            1.0 - d["stream_wall_seconds"] / stage if stage > 0 else 0.0
+        )
         return d
 
     def reset_io_stats(self) -> None:
@@ -504,7 +536,7 @@ class SageStore:
                 self._bump_cache(name, "hits")
                 return self._prepared[key]
             self._bump_cache(name, "misses")
-            db = prepare_device_blocks(self.file(name)).to(self.device)
+            db = prepare_device_blocks(self.file(name)).to(self.device, self.uploader)
             self._insert_prepared(key, db)
             return db
 
@@ -547,7 +579,7 @@ class SageStore:
                 classes=r.meta.classes,
                 fixed_len=r.meta.fixed_read_len,
                 n_blocks=stride,
-            ).to(self.device)
+            ).to(self.device, self.uploader)
             decoded = 0
         with self._lock:
             # re-check under the lock: a concurrent thread may have uploaded
@@ -696,18 +728,23 @@ class SageStore:
         cons[:n] = entry["cons"]
         dirr = np.zeros((stride,) + entry["dir"].shape[1:], entry["dir"].dtype)
         dirr[:n] = entry["dir"]
-        dev = self.device
-        dicts = torch.as_tensor(np.asarray(r._codec_dicts, dtype=np.uint8), device=dev)
-        arrays = dict(unpack_block_rows(host_to_tensor(buf, dev), dicts, dict(r.layout.widths)))
-        arrays["cons"] = host_to_tensor(cons, dev)
-        arrays["dir"] = host_to_tensor(dirr, dev)
+        with self._lock:
+            dicts = self._device_dicts.get(r)
+            if dicts is None:
+                (dicts,) = self.uploader(np.asarray(r._codec_dicts, dtype=np.uint8))
+                self._device_dicts[r] = dicts
+        packed, cons_t, dir_t = self.uploader(buf, cons, dirr)
+        arrays = dict(unpack_block_rows(packed, dicts, dict(r.layout.widths)))
+        arrays["cons"] = cons_t
+        arrays["dir"] = dir_t
         db = DeviceBlocks(
             arrays=arrays,
             caps=r.meta.caps,
             classes=r.meta.classes,
             fixed_len=r.meta.fixed_read_len,
             n_blocks=stride,
-            device=dev,
+            device=self.device,
+            uploader=self.uploader,
         )
         return db, n * r.layout.payload_nbytes
 
@@ -784,7 +821,7 @@ class SageStore:
             return (
                 DeviceBlocks(arrays={}, caps=r.meta.caps, classes=r.meta.classes,
                              fixed_len=r.meta.fixed_read_len, n_blocks=0,
-                             device=self.device),
+                             device=self.device, uploader=self.uploader),
                 ids,
             )
         g = self.group_blocks
@@ -797,10 +834,11 @@ class SageStore:
         # invert the permutation — all index math vectorized on host
         sidx = np.argsort(gids, kind="stable")
         sorted_ids, sorted_gids = ids[sidx], gids[sidx]
-        parts = []
-        for gi in gis:
-            rows = torch.as_tensor(sorted_ids[sorted_gids == gi] % g, device=self.device)
-            parts.append({k: v.index_select(0, rows) for k, v in dbs[gi].arrays.items()})
+        rows = self.uploader(*(sorted_ids[sorted_gids == gi] % g for gi in gis))
+        parts = [
+            {k: v.index_select(0, rw) for k, v in dbs[gi].arrays.items()}
+            for gi, rw in zip(gis, rows)
+        ]
         arrays = {k: torch.cat([p[k] for p in parts], dim=0) for k in parts[0]}
         local = np.empty(ids.size, dtype=np.int64)
         local[sidx] = np.arange(ids.size, dtype=np.int64)
@@ -808,6 +846,7 @@ class SageStore:
         db = DeviceBlocks(
             arrays=arrays, caps=first.caps, classes=first.classes,
             fixed_len=first.fixed_len, n_blocks=ids.size, device=self.device,
+            uploader=self.uploader,
         )
         return db, local
 
@@ -850,23 +889,25 @@ class SageStore:
         shards: Optional[int] = None,
     ) -> "SageReadSession":
         """Open a read session on the store's device. Decode runs the
-        two-step path: the block-decode kernel, then the format kernel.
-        ``fused=True`` (one gather+decode+format kernel) and ``mesh``/
-        ``shards`` are not ported yet and raise."""
-        if fused:
-            raise _not_ported("session(fused=True)", "Queue A, slice 2: fused kernel B5")
+        two-step path (the block-decode kernel, then the format kernel), or
+        with ``fused=True`` gather, decode and format as one kernel (B5) for
+        every format with a registered fuser (bit-identical output; other
+        formats take the two-step path). ``mesh``/``shards`` are not ported
+        yet and raise."""
         if mesh is not None or shards is not None:
             raise _not_ported("session(mesh=/shards=)", "Queue A, slice 7: multi-GPU")
-        return SageReadSession(self)
+        return SageReadSession(self, fused=fused)
 
 
 class SageReadSession:
     """One consumer's view of a store: the paper's command set, decoding on
     the store's device (CUDA kernels on ``cuda``, their plain torch
-    versions on ``cpu``)."""
+    versions on ``cpu``); ``fused`` sessions decode and format in one
+    kernel."""
 
-    def __init__(self, store: SageStore) -> None:
+    def __init__(self, store: SageStore, *, fused: bool = False) -> None:
         self.store = store
+        self.fused = fused
 
     # ------------------------------------------------------------ SAGe_Write
     def write(self, name: str, read_set, consensus, **kwargs) -> SageFile:
@@ -913,14 +954,35 @@ class SageReadSession:
         only the block groups covering ``block_range`` resident."""
         ids = self.resolve_blocks(name, block_range)
         db, local = self.store.prepared_for(name, ids)
-        out = decode_blocks_bucketed(
+        out = self._decode_prepared(name, db, local, fmt, kmer_k)
+        out["block_ids"] = ids
+        return out
+
+    def _decode_prepared(
+        self, name: str, db: DeviceBlocks, local, fmt, kmer_k: Optional[int]
+    ) -> dict[str, torch.Tensor]:
+        """Decode + format already-resident blocks: the dispatch half of
+        ``read`` (the pipelined stream calls it apart from residency, so
+        upload and decode time out as distinct stages).
+
+        ``fused`` sessions run gather+decode+format as one kernel when a
+        fuser is registered for ``fmt``; other formats take the two-step
+        path."""
+        spec = get_format(fmt)
+        if self.fused and fused_format_supported(spec.name):
+            if spec.requires_k and kmer_k is None:
+                # the same contract apply_format enforces on the 2-step path
+                raise ValueError(
+                    f"SAGe_Read({name!r}): format {spec.name!r} requires kmer_k "
+                    f"(registered formats: {available_formats()})"
+                )
+            return fused_decode_blocks_bucketed(db, local, fmt_name=spec.name, kmer_k=kmer_k)
+        return decode_blocks_bucketed(
             db, local,
             postprocess=lambda dec: apply_format(
                 dec, fmt, kmer_k=kmer_k, context=f"SAGe_Read({name!r})",
             ),
         )
-        out["block_ids"] = ids
-        return out
 
     # -------------------------------------------------------------- SAGe_ISP
     def read_stream(
@@ -937,6 +999,7 @@ class SageReadSession:
         max_fetches: Optional[int] = None,
         dispatch: Optional[int] = None,
         mode: Optional[str] = None,
+        readahead: int = 2,
     ):
         """SAGe_ISP: stream decoded block groups into an analysis consumer.
 
@@ -949,11 +1012,15 @@ class SageReadSession:
         ``dispatch=N``) enqueues exactly N groups' kernels ahead on the
         device stream before yielding the first — the device decodes group
         i+k while the consumer holds group i, with no host synchronization.
-        ``None`` infers from ``dispatch``/``prefetch``. ``"pipelined"`` is
-        not ported yet and raises. ``wrap=True`` cycles block groups
+        ``"pipelined"`` runs the disk→host→device→decode pipeline
+        (:class:`repro_torch.core.streaming.PipelinedStream`): a background
+        I/O thread ranged-reads fetch i+2's extents into the host cache
+        while fetch i+1 uploads and fetch i decodes — dispatch depth
+        ``dispatch`` (default 2), I/O readahead ``readahead`` fetches beyond
+        that, double-buffered device slots, per-stage wall time and
+        ``overlap_fraction`` folded into ``store.io_stats``. ``None`` infers
+        from ``dispatch``/``prefetch``. ``wrap=True`` cycles block groups
         forever (epoch increments at each wraparound)."""
-        if mode == "pipelined":
-            raise _not_ported("read_stream(mode=\"pipelined\")", "Queue A, slice 2: PipelinedStream")
         nb = self.store.n_blocks(name)  # validate eagerly, not at first next()
         if not (0 <= start_block < nb):
             raise ValueError(f"start_block {start_block} out of bounds (0..{nb - 1})")
@@ -961,28 +1028,44 @@ class SageReadSession:
             raise ValueError(f"blocks_per_fetch must be >= 1, got {blocks_per_fetch}")
         if dispatch is not None and dispatch < 0:
             raise ValueError(f"dispatch depth must be >= 0, got {dispatch}")
-        if mode not in (None, "sync", "prefetch", "dispatch"):
+        if mode not in (None, "sync", "prefetch", "dispatch", "pipelined"):
             raise ValueError(
-                f"mode must be one of 'sync', 'prefetch', 'dispatch' "
-                f"(or None to infer), got {mode!r}"
+                f"mode must be one of 'sync', 'prefetch', 'dispatch', "
+                f"'pipelined' (or None to infer), got {mode!r}"
             )
+        if readahead < 0:
+            raise ValueError(f"readahead must be >= 0, got {readahead}")
         get_format(fmt)
-        if mode == "sync":
-            prefetch, dispatch = 0, None
-        elif mode == "prefetch":
-            prefetch = max(1, prefetch)
-            dispatch = None
-        elif mode == "dispatch" and dispatch is None:
-            dispatch = 2
-        it = self._stream_iter(
-            name, fmt=fmt, kmer_k=kmer_k, start_block=start_block,
-            blocks_per_fetch=blocks_per_fetch, prefetch=prefetch,
-            wrap=wrap, max_fetches=max_fetches, dispatch=dispatch,
-        )
+        if mode == "pipelined":
+            from repro_torch.core.streaming import PipelinedStream
+
+            it = PipelinedStream(
+                self, name, fmt=fmt, kmer_k=kmer_k, start_block=start_block,
+                blocks_per_fetch=blocks_per_fetch, wrap=wrap,
+                max_fetches=max_fetches,
+                dispatch=max(1, dispatch if dispatch is not None else 2),
+                readahead=readahead,
+            )
+        else:
+            if mode == "sync":
+                prefetch, dispatch = 0, None
+            elif mode == "prefetch":
+                prefetch = max(1, prefetch)
+                dispatch = None
+            elif mode == "dispatch" and dispatch is None:
+                dispatch = 2
+            it = self._stream_iter(
+                name, fmt=fmt, kmer_k=kmer_k, start_block=start_block,
+                blocks_per_fetch=blocks_per_fetch, prefetch=prefetch,
+                wrap=wrap, max_fetches=max_fetches, dispatch=dispatch,
+            )
         if consumer is None:
             return it
         if wrap and max_fetches is None:
             raise ValueError("read_stream(consumer=..., wrap=True) needs max_fetches")
+        if mode == "pipelined":
+            with it:
+                return [consumer(batch) for batch in it]
         return [consumer(batch) for batch in it]
 
     def _group_ids(

@@ -5,6 +5,7 @@ sage_unpack -> sage_decode.unpack_rows_plain
 sage_decode -> core.decode_torch.decode_block_arrays (batched over blocks)
 kmer_pack   -> reformat.kmer_pack_plain
 one_hot     -> reformat.one_hot_plain
+sage_fused  -> sage_decode.fused_decode_plain (gather, decode, format)
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 
 from repro_torch.core.decode_torch import DeviceBlocks, decode_block_arrays
 from repro_torch.kernels.reformat import kmer_pack_plain, one_hot_plain
-from repro_torch.kernels.sage_decode import unpack_rows_plain
+from repro_torch.kernels.sage_decode import fused_decode_plain, unpack_rows_plain
 
 
 def sage_unpack_ref(packed: torch.Tensor, dicts: torch.Tensor, widths) -> dict[str, torch.Tensor]:
@@ -22,6 +23,11 @@ def sage_unpack_ref(packed: torch.Tensor, dicts: torch.Tensor, widths) -> dict[s
 
 def sage_decode_ref(db: DeviceBlocks) -> dict[str, torch.Tensor]:
     return decode_block_arrays(db.arrays, caps=db.caps, classes=db.classes, fixed_len=db.fixed_len)
+
+
+def sage_fused_ref(db: DeviceBlocks, ids, valid, fmt: str, kmer_k=None) -> dict[str, torch.Tensor]:
+    return fused_decode_plain(db.arrays, ids, valid, caps=db.caps, classes=db.classes,
+                              fixed_len=db.fixed_len, fmt=fmt, kmer_k=kmer_k)
 
 
 def kmer_pack_ref(tokens: torch.Tensor, k: int, n_tokens=None) -> torch.Tensor:

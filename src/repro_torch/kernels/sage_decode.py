@@ -1,8 +1,10 @@
-"""Codec unpack and block decode: CUDA kernels, their wrappers and the
-plain torch version of the unpack.
+"""Codec unpack, block decode and fused gather+decode+format: CUDA kernels,
+their wrappers and the plain torch versions of the unpack and the fused
+decode.
 
-``sage_unpack`` replaces the TPU kernel ``sage_unpack_pallas`` and
-``sage_decode_arrays`` replaces ``sage_decode_arrays`` / ``_kernel``
+``sage_unpack`` replaces the TPU kernel ``sage_unpack_pallas``,
+``sage_decode_arrays`` replaces ``sage_decode_arrays`` / ``_kernel`` and
+``sage_fused_decode`` replaces ``_build_pallas_fused`` / ``_fused_kernel``
 (src/repro/kernels/sage_decode.py). A wrapper launches its kernel for CUDA
 tensors (sources in ``csrc/``, built at first use) and takes the plain
 version only for CPU tensors; on any other device it raises. The plain
@@ -16,9 +18,12 @@ import ctypes
 import torch
 
 from repro_torch.core.codec import DESC_WORDS, ESCAPE, MODE_NIBBLE, USED_MASK
-from repro_torch.core.decode_torch import decode_block_arrays, to_i32_bits
+import numpy as np
+
+from repro_torch.core.decode_torch import Uploader, decode_block_arrays, empty_decode, to_i32_bits
 from repro_torch.core.format import D, STREAMS
 from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.reformat import kmer_pack_plain, one_hot_plain
 
 OUT_KEYS = ("tokens", "read_pos", "read_rev", "read_start", "read_len", "read_corner")
 I32 = torch.int32
@@ -168,6 +173,10 @@ class _DecodeParams(ctypes.Structure):
         ("read_corner", ctypes.c_void_p),
         ("scratch", ctypes.c_void_p),
         ("slot_ints", ctypes.c_longlong),
+        ("ids", ctypes.c_void_p),
+        ("n_reads", ctypes.c_void_p), ("n_tokens", ctypes.c_void_p),
+        ("kmer", ctypes.c_void_p), ("onehot", ctypes.c_void_p),
+        ("kmer_k", ctypes.c_int),
     ]
 
 
@@ -176,9 +185,11 @@ def decode_dims(caps) -> tuple[int, int, int, int, int]:
     return caps.segs, max(caps.mism, 1), max(caps.indel, 1), max(caps.multi, 1), caps.tokens
 
 
-def launch_decode(lib, arrays, outs, scratch, grid, *, caps, classes, fixed_len, stream) -> int:
-    """Fill the decode kernel's parameter block and launch on ``grid`` CTAs
-    (``scratch`` holds one slot per CTA). Returns the CUDA error code."""
+def decode_params(arrays, outs, scratch, *, caps, classes, fixed_len) -> _DecodeParams:
+    """The parameter block both decode kernels take. ``arrays`` hold the
+    stream, ``cons`` and ``dir`` rows (and B2's optional ``valid`` column);
+    ``outs`` the token plane and the five read planes of the lanes; ``scratch``
+    one slot per CTA. The lane count is the token plane's row count."""
     p = _DecodeParams()
     for i, s in enumerate(STREAMS):
         p.streams[i] = arrays[s].data_ptr()
@@ -188,7 +199,7 @@ def launch_decode(lib, arrays, outs, scratch, grid, *, caps, classes, fixed_len,
     p.dir = arrays["dir"].data_ptr()
     p.ndir = arrays["dir"].shape[1]
     p.valid = arrays["valid"].data_ptr() if "valid" in arrays else None
-    p.nb = arrays["dir"].shape[0]
+    p.nb = outs["tokens"].shape[0]
     p.R, p.M, p.I, p.U, p.C = decode_dims(caps)
     p.window, p.insb, p.escb = caps.window, caps.insb, caps.escb
     p.fixed_len = int(fixed_len)
@@ -204,6 +215,13 @@ def launch_decode(lib, arrays, outs, scratch, grid, *, caps, classes, fixed_len,
         setattr(p, k, outs[k].data_ptr())
     p.scratch = scratch.data_ptr()
     p.slot_ints = scratch.shape[1]
+    return p
+
+
+def launch_decode(lib, arrays, outs, scratch, grid, *, caps, classes, fixed_len, stream) -> int:
+    """Launch the block-decode kernel on ``grid`` CTAs (``scratch`` holds one
+    slot per CTA). Returns the CUDA error code."""
+    p = decode_params(arrays, outs, scratch, caps=caps, classes=classes, fixed_len=fixed_len)
     fn = lib.sage_decode_launch
     fn.argtypes = [ctypes.POINTER(_DecodeParams), ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -216,23 +234,31 @@ def decode_slot_ints(lib, caps) -> int:
     return int(lib.sage_decode_slot_ints(R, M, C))
 
 
-def _check_decode_inputs(arrays, caps, classes) -> None:
+def _check_decode_inputs(arrays, caps, classes, name="sage_decode_arrays") -> None:
     nb = arrays["dir"].shape[0]
     for k in list(STREAMS) + ["cons", "dir"]:
         a = arrays[k]
         if a.dtype != I32 or a.dim() != 2 or a.shape[0] != nb:
-            raise ValueError(f"sage_decode_arrays: {k} must be ({nb}, W) int32, got {a.dtype} {tuple(a.shape)}")
+            raise ValueError(f"{name}: {k} must be ({nb}, W) int32, got {a.dtype} {tuple(a.shape)}")
         if k != "dir" and a.shape[1] < 2:
-            raise ValueError(f"sage_decode_arrays: {k} rows need >= 2 words")
+            raise ValueError(f"{name}: {k} rows need >= 2 words")
     if arrays["cons"].shape[1] * 16 < caps.window:
-        raise ValueError("sage_decode_arrays: cons rows narrower than caps.window")
+        raise ValueError(f"{name}: cons rows narrower than caps.window")
     if "valid" in arrays and tuple(arrays["valid"].shape) != (nb, 1):
-        raise ValueError("sage_decode_arrays: valid must be (nb, 1)")
+        raise ValueError(f"{name}: valid must be (nb, 1)")
     for kind in ("map", "len", "cnt", "mp"):
         if not 1 <= len(classes[kind]) <= _MAXCLS:
-            raise ValueError(f"sage_decode_arrays: {kind} needs 1..{_MAXCLS} width classes")
+            raise ValueError(f"{name}: {kind} needs 1..{_MAXCLS} width classes")
     if caps.segs < 1 or caps.tokens < 1:
-        raise ValueError("sage_decode_arrays: caps.segs and caps.tokens must be >= 1")
+        raise ValueError(f"{name}: caps.segs and caps.tokens must be >= 1")
+
+
+def _decode_grid(lib, caps, dev, nb: int) -> tuple[int, torch.Tensor]:
+    """Bounded persistent grid (a few CTAs per SM) and its scratch, one
+    slot per CTA."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = min(nb, _CTAS_PER_SM * n_sm)
+    return grid, torch.empty((grid, decode_slot_ints(lib, caps)), dtype=I32, device=dev)
 
 
 def sage_decode_arrays(
@@ -261,13 +287,137 @@ def sage_decode_arrays(
     if nb == 0:
         return outs
     lib = cuda_lib.lib("sage_decode")
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid = min(nb, _CTAS_PER_SM * n_sm)
-    scratch = torch.empty((grid, decode_slot_ints(lib, caps)), dtype=I32, device=dev)
+    grid, scratch = _decode_grid(lib, caps, dev, nb)
     with torch.cuda.device(dev):
         rc = launch_decode(lib, arrays, outs, scratch, grid, caps=caps, classes=classes,
                            fixed_len=fixed_len, stream=torch.cuda.current_stream().cuda_stream)
     lib.sage_decode_error_string.restype = ctypes.c_char_p
     cuda_lib.check(rc, "sage_decode_arrays", lib.sage_decode_error_string)
     cuda_lib.COUNTS["launch:sage_decode"] += 1
+    return outs
+
+
+# --------------------------------------------------------------------------
+# fused gather + decode + format (B5)
+# --------------------------------------------------------------------------
+
+#: formats B5 writes itself, and the epilogue code its launcher takes
+FUSED_EPILOGUES = {"2bit": 0, "kmer": 1, "onehot": 2}
+FUSED_COUNT_KEYS = ("n_reads", "n_tokens")
+
+
+def _check_fused_args(arrays, ids, valid, fmt, kmer_k) -> tuple[np.ndarray, np.ndarray]:
+    """Host-side checks of B5's lane arguments: ``ids`` index the resident
+    rows, one 0/1 ``valid`` flag per lane, a known format and k."""
+    ids = np.asarray(ids)
+    valid = np.asarray(valid)
+    if fmt not in FUSED_EPILOGUES:
+        raise ValueError(f"sage_fused_decode: fmt must be one of {tuple(FUSED_EPILOGUES)}, got {fmt!r}")
+    if fmt == "kmer" and not (isinstance(kmer_k, (int, np.integer)) and 1 <= kmer_k <= 8):
+        raise ValueError(f"sage_fused_decode: kmer needs kmer_k in 1..8, got {kmer_k!r}")
+    if ids.ndim != 1 or valid.shape != ids.shape:
+        raise ValueError(f"sage_fused_decode: ids and valid must be (nb,), got {ids.shape} {valid.shape}")
+    if not (np.issubdtype(ids.dtype, np.integer) or ids.size == 0):
+        raise ValueError(f"sage_fused_decode: ids must be integers, got {ids.dtype}")
+    if ((valid != 0) & (valid != 1)).any():
+        raise ValueError("sage_fused_decode: valid must hold 0/1 flags")
+    n_rows = arrays["dir"].shape[0]
+    if ids.size and (ids.min() < 0 or ids.max() >= n_rows):
+        raise IndexError(f"sage_fused_decode: ids must lie in [0, {n_rows}), got [{ids.min()}, {ids.max()}]")
+    return ids.astype(np.int64), valid.astype(np.int32)
+
+
+def _fused_empty(caps, device, fmt, kmer_k) -> dict[str, torch.Tensor]:
+    out = empty_decode(caps, device)
+    if fmt == "kmer":
+        out["kmer"] = torch.zeros((0, caps.tokens // kmer_k), dtype=I32, device=device)
+    elif fmt == "onehot":
+        out["onehot"] = torch.zeros((0, caps.tokens, 4), dtype=torch.bfloat16, device=device)
+    return out
+
+
+def fused_decode_plain(
+    arrays: dict[str, torch.Tensor], ids, valid, *, caps, classes, fixed_len, fmt: str,
+    kmer_k=None,
+) -> dict[str, torch.Tensor]:
+    """Plain torch version of B5: gather the ``ids`` rows out of the resident
+    arrays, decode them masked by ``valid`` and format the tokens, on the
+    arrays' device. Same keys as :func:`sage_fused_decode`."""
+    ids, valid = _check_fused_args(arrays, ids, valid, fmt, kmer_k)
+    dev = arrays["dir"].device
+    if ids.size == 0:
+        return _fused_empty(caps, dev, fmt, kmer_k)
+    idx = torch.as_tensor(ids, device=dev)
+    sub = {k: arrays[k].index_select(0, idx) for k in list(STREAMS) + ["cons", "dir"]}
+    sub["valid"] = torch.as_tensor(valid, device=dev)[:, None]
+    dec = decode_block_arrays(sub, caps=caps, classes=classes, fixed_len=fixed_len)
+    out = {k: dec[k] for k in OUT_KEYS + FUSED_COUNT_KEYS}
+    if fmt == "kmer":
+        out["kmer"] = kmer_pack_plain(dec["tokens"], kmer_k, dec["n_tokens"])
+    elif fmt == "onehot":
+        out["onehot"] = one_hot_plain(dec["tokens"])
+    return out
+
+
+def launch_fused(lib, arrays, idv, outs, scratch, grid, *, caps, classes, fixed_len, fmt, kmer_k,
+                 stream) -> int:
+    """Launch B5 on ``grid`` CTAs. ``idv`` (2, nb) int32 holds the lanes'
+    row ids over their valid flags. Returns the CUDA error code."""
+    p = decode_params(arrays, outs, scratch, caps=caps, classes=classes, fixed_len=fixed_len)
+    p.ids = idv[0].data_ptr()
+    p.valid = idv[1].data_ptr()
+    p.n_reads = outs["n_reads"].data_ptr()
+    p.n_tokens = outs["n_tokens"].data_ptr()
+    p.kmer = outs["kmer"].data_ptr() if fmt == "kmer" else None
+    p.onehot = outs["onehot"].data_ptr() if fmt == "onehot" else None
+    p.kmer_k = int(kmer_k) if fmt == "kmer" else 0
+    fn = lib.sage_fused_launch
+    fn.argtypes = [ctypes.POINTER(_DecodeParams), ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn(ctypes.byref(p), grid, FUSED_EPILOGUES[fmt], stream)
+
+
+def sage_fused_decode(
+    arrays: dict[str, torch.Tensor], ids, valid, *, caps, classes: dict[str, tuple[int, ...]],
+    fixed_len: int, fmt: str, kmer_k=None, upload=None,
+) -> dict[str, torch.Tensor]:
+    """Gather, decode and format in one launch: lane b decodes resident row
+    ``ids[b]`` (host numpy) masked by ``valid[b]``, and the result holds the
+    six planes of :data:`OUT_KEYS`, ``n_reads`` / ``n_tokens`` and, for
+    ``fmt`` ``"kmer"`` or ``"onehot"``, the format's plane; bit for bit B2
+    followed by B3 or B4. ``upload`` (a :class:`Uploader` of the arrays'
+    device) carries the lane ids to the card."""
+    ids, valid = _check_fused_args(arrays, ids, valid, fmt, kmer_k)
+    names = list(STREAMS) + ["cons", "dir"]
+    ins = {k: arrays[k] for k in names}
+    dev = ins["dir"].device
+    if ids.size == 0:
+        return _fused_empty(caps, dev, fmt, kmer_k)
+    if cuda_lib.on_cpu(*ins.values()):
+        cuda_lib.COUNTS["plain:sage_fused"] += 1
+        return fused_decode_plain(ins, ids, valid, caps=caps, classes=classes,
+                                  fixed_len=fixed_len, fmt=fmt, kmer_k=kmer_k)
+    _check_decode_inputs(ins, caps, classes, name="sage_fused_decode")
+    cuda_lib.require_cuda(*ins.values(), name="sage_fused_decode")
+    nb = ids.size
+    R, _M, _I, _U, C = decode_dims(caps)
+    outs = {"tokens": torch.empty((nb, C), dtype=torch.int8, device=dev)}
+    for k in OUT_KEYS[1:]:
+        outs[k] = torch.empty((nb, R), dtype=I32, device=dev)
+    for k in FUSED_COUNT_KEYS:
+        outs[k] = torch.empty((nb,), dtype=I32, device=dev)
+    if fmt == "kmer":
+        outs["kmer"] = torch.empty((nb, C // kmer_k), dtype=I32, device=dev)
+    elif fmt == "onehot":
+        outs["onehot"] = torch.empty((nb, C, 4), dtype=torch.bfloat16, device=dev)
+    (idv,) = (upload or Uploader(dev))(np.stack([ids.astype(np.int32), valid]))
+    lib = cuda_lib.lib("sage_decode")
+    grid, scratch = _decode_grid(lib, caps, dev, nb)
+    with torch.cuda.device(dev):
+        rc = launch_fused(lib, ins, idv, outs, scratch, grid, caps=caps, classes=classes,
+                          fixed_len=fixed_len, fmt=fmt, kmer_k=kmer_k,
+                          stream=torch.cuda.current_stream().cuda_stream)
+    lib.sage_decode_error_string.restype = ctypes.c_char_p
+    cuda_lib.check(rc, "sage_fused_decode", lib.sage_decode_error_string)
+    cuda_lib.COUNTS["launch:sage_fused"] += 1
     return outs

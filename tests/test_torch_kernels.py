@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain torch versions, on the card.
+"""The port's CUDA kernels against their plain torch versions, on the card
+(and the fused kernel B5 also against B2 followed by B3 / B4).
 
 Every test carries the ``cuda`` marker and takes the ``cuda`` fixture, which
 skips when ``torch.cuda.is_available()`` is false (decided when the test
@@ -102,3 +103,58 @@ def test_second_bucket_of_a_shape_builds_nothing(cuda):
     DT.reset_trace_counts()
     DT.decode_blocks_bucketed(db, np.arange(1, 4))
     assert DT.trace_counts() == {"launch:sage_decode": 1}
+
+
+FUSED_CASES = [("2bit", None), ("kmer", 3), ("kmer", 4), ("kmer", 5), ("onehot", None)]
+
+
+@pytest.mark.parametrize("fmt,k", FUSED_CASES, ids=[f"{f}{k or ''}" for f, k in FUSED_CASES])
+@pytest.mark.parametrize("profile", sorted(PROFILES))
+def test_fused_kernel_matches_plain_and_two_step(cuda, profile, fmt, k):
+    """B5 on permuted, repeated and invalid lanes against its plain version
+    and against B2 followed by B3 / B4 on the same lanes (k = 3 and 5 leave
+    a ragged tail of C % k tokens)."""
+    db = DT.prepare_device_blocks(encoded(profile)).to(cuda)
+    n = db.n_blocks
+    lanes = np.random.default_rng(n).permutation(n)[: max(1, n - 1)]
+    padded, valid = pad_block_ids(np.concatenate([lanes, lanes[:2]]))
+    DT.reset_trace_counts()
+    got = ops.sage_fused(db, padded, valid, fmt, k)
+    assert DT.trace_counts() == {"launch:sage_fused": 1}
+    want = ref.sage_fused_ref(db, padded, valid, fmt, k)
+    sub = DT.gather_block_arrays(db, padded, valid)
+    two = DT._fill_counts(dict(ops.sage_decode(
+        DT.DeviceBlocks(sub, db.caps, db.classes, db.fixed_len, len(padded), cuda))), sub)
+    if fmt == "kmer":
+        two["kmer"] = ops.kmer_tokens(two["tokens"], k, two["n_tokens"])
+    elif fmt == "onehot":
+        two["onehot"] = ops.one_hot(two["tokens"])
+    torch.cuda.synchronize()
+    assert sorted(got) == sorted(want) == sorted(two)
+    assert_equal_dicts(got, want, list(want))
+    assert_equal_dicts(got, two, list(two))
+    assert not got["n_tokens"][torch.as_tensor(valid == 0, device=cuda)].any()
+
+
+def test_fused_kernel_refuses_out_of_range_ids(cuda):
+    db = DT.prepare_device_blocks(encoded("illumina")).to(cuda)
+    for ids in ([0, db.n_blocks], [-1, 0]):
+        with pytest.raises(IndexError, match="ids must lie in"):
+            ops.sage_fused(db, np.array(ids), np.ones(2, np.int32), "2bit")
+
+
+def test_fused_session_read_launches_only_b5(cuda):
+    from repro_torch.core import SageStore
+
+    store = SageStore(device=cuda)
+    store.register("ds", encoded("ont"))
+    sess = store.session(fused=True)
+    n = store.n_blocks("ds")
+    for fmt in ("2bit", "kmer", "onehot"):
+        sess.read("ds", (0, n), fmt, kmer_k=4)  # warm residency
+        DT.reset_trace_counts()
+        out = sess.read("ds", (0, n), fmt, kmer_k=4)
+        torch.cuda.synchronize()
+        assert DT.trace_counts() == {"launch:sage_fused": 1}, fmt
+        two = store.session().read("ds", (0, n), fmt, kmer_k=4)
+        assert_equal_dicts(out, two, [k for k in two if k != "block_ids"])

@@ -16,33 +16,13 @@ from repro_torch.convert import sage_file_from_reference
 from repro_torch.core import SageStore
 from repro_torch.core.decode_torch import reset_trace_counts, trace_counts
 from repro_torch.core.errors import IntegrityError
+from repro_torch.data import SageTokenPipeline
 
-from torch_cases import encoded_case
+from torch_cases import assert_same, encoded_case
 
 GROUP = 4
 FMTS = [("2bit", None), ("kmer", 4), ("onehot", None)]
 RANGES = [(2, 11), [5, 1, 13, 2], (0, 3)]  # cross group edges; buckets 16 and 4
-
-
-def np_out(d):
-    out = {}
-    for k, v in d.items():
-        if isinstance(v, torch.Tensor):
-            v = v.float().numpy() if v.dtype == torch.bfloat16 else v.numpy()
-        else:
-            v = np.asarray(v)
-            if v.dtype.name == "bfloat16":
-                v = v.astype(np.float32)
-        out[k] = v
-    return out
-
-
-def assert_same(ours, theirs):
-    a, b = np_out(ours), np_out(theirs)
-    assert sorted(a) == sorted(b)
-    for k in a:
-        assert a[k].shape == b[k].shape, k
-        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 @pytest.fixture(scope="module")
@@ -180,10 +160,8 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
 def test_unported_options_raise_with_roadmap_item(codec_path):
     ours, _ = stores(codec_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 2"):
-        ours.session(fused=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 2"):
-        ours.session().read_stream("ds", mode="pipelined")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 7"):
+        SageTokenPipeline("ds", vocab_size=259, batch=1, seq_len=8, store=ours, mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP.*slice 7"):
         SageStore(device="cpu", shards=2)
     with pytest.raises(NotImplementedError, match="ROADMAP.*slice 7"):

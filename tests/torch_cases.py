@@ -7,6 +7,9 @@ the indel, multi-base and insertion paths."""
 
 import functools
 
+import numpy as np
+import torch
+
 from repro.core.encoder import SageEncoder
 from repro.genomics.synth import make_reference, sample_read_set
 
@@ -30,3 +33,26 @@ def encoded_case(profile: str):
     rs = sample_read_set(reference(), profile, **kw)
     sf = SageEncoder(reference(), token_target=token_target, batched=False).encode(rs)
     return rs, sf
+
+
+def np_out(d):
+    """A result dict as numpy arrays (bf16 widened to float32)."""
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, torch.Tensor):
+            v = v.float().numpy() if v.dtype == torch.bfloat16 else v.numpy()
+        else:
+            v = np.asarray(v)
+            if v.dtype.name == "bfloat16":
+                v = v.astype(np.float32)
+        out[k] = v
+    return out
+
+
+def assert_same(ours, theirs):
+    """Same keys, shapes and values, bit for bit."""
+    a, b = np_out(ours), np_out(theirs)
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert a[k].shape == b[k].shape, k
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
