@@ -1,6 +1,7 @@
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: SAGe_Read, SAGe_ISP
-and the LM token pipeline through the hand-written CUDA kernels, checked
-against the sequential numpy decoder.
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: SAGe_Read, SAGe_ISP,
+the LM token pipeline and mamba2-370m serving store-derived prompts, through
+the hand-written CUDA kernels, checked against the sequential numpy decoder,
+the plain torch versions and the CPU.
 
     python3 chip_smoke.py
 
@@ -15,7 +16,10 @@ Phases, each printing one JSON line:
            main path's shapes, timed with CUDA events beside its bound
            (device time, and the call time that includes launch overhead);
            the fused kernel B5 in each format on a 256-lane bucket of
-           permuted, repeated and invalid lanes, also against B2 -> B3 / B4
+           permuted, repeated and invalid lanes, also against B2 -> B3 / B4;
+           the SSD intra-chunk kernel B6 at mamba2-370m's prefill (8 x 512
+           tokens, Q = 128) and decode (Q = 1) shapes in bf16 and f32, and
+           a large-decay case (TF32 off for matmul and cuDNN)
   main     SageStore(device="cuda"): session.read of 256-block ranges in
            2bit / kmer / onehot, a 4096-block dispatch-mode kmer stream, and
            every ONT and HiFi block in all three formats; then a fused
@@ -32,6 +36,15 @@ Phases, each printing one JSON line:
            torch.profiler: device time by kernel, the device busy share, the
            host->device copy time that overlapped a kernel, and the
            pipelined stream's stage seconds and overlap_fraction
+  lm       mamba2-370m at full width (48 layers, d_model 1024, weights from
+           a seeded generator on the card): 8 prompts from the Illumina
+           container through a fused kmer session (k = 7; B1, B5), two
+           greedy ServingEngine.generate calls (512-token slots, 64 new
+           tokens; 48 x 64 B6 launches each, no plain call, the same tokens
+           twice); prompts against the CPU; a 4-layer cut's f32 and bf16
+           prefill logits against the CPU; chunked prefill against
+           step-by-step decode on that cut; time to first token, decode
+           ms per step, peak memory, profiles of a prefill and 8 decode steps
 Then the kernel table as one JSON line, the card's name and power limit,
 and the final {"ok": true, ...} line. Any failure raises (exit code != 0).
 """
@@ -54,8 +67,9 @@ sys.path.insert(0, str(ROOT / "src"))
 try:
     import torch
 
+    from repro_torch.configs import get_arch
     from repro_torch.core import SageStore
-    from repro_torch.core.api import kmer_vocab_size
+    from repro_torch.core.api import kmer_vocab_size, pick_k
     from repro_torch.core.bitio import unpack_2bit
     from repro_torch.core.blocks import block_row_widths, localize_directory, pad_block_ids
     from repro_torch.core.decode_torch import (
@@ -73,12 +87,15 @@ try:
     from repro_torch.data import SageTokenPipeline
     from repro_torch.genomics.synth import make_reference, sample_read_set
     from repro_torch.kernels import cuda_lib, ops, ref
+    from repro_torch.kernels.ssd_chunk import ssd_intra, ssd_intra_plain
+    from repro_torch.models import lm
+    from repro_torch.serving import ServeConfig, ServingEngine, prompts_from_store
 except ImportError as e:  # run outside a checkout of the repository
     print(f"chip_smoke: cannot import the port ({e}); run from the repository root", file=sys.stderr)
     sys.exit(2)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-INT_OPS_PER_S = 67e12  # H100 SXM non-tensor-core rate (float32 table entry)
+INT_OPS_PER_S = 67e12  # H100 SXM non-tensor-core rate (float32 table entry; B6's f32 FMAs too)
 SPIN_HZ = 2.0e9  # >= the H100's SM clock, so a spin of n cycles lasts at least n / SPIN_HZ s
 # Illumina at full width: 8 source blocks of C = 65558 tokens
 ILLUMINA = dict(ref_len=120_000, ref_seed=7, depth=4, seed=8, token_target=65536,
@@ -95,6 +112,13 @@ TOKENS = dict(batch=8, seq_len=2048, n_batches=16, restore_after=8)
 WARM_READS = 5  # reads in each profiled warm-read window
 KMER_K = 4
 FMTS = ("2bit", "kmer", "onehot")
+LM_ARCH = "mamba2-370m"  # full width; the card-vs-CPU and duality checks cut its depth
+LM = dict(seed=0, prompts=8, cut_layers=4, duality_tokens=160, prefill_runs=3, profile_steps=8)
+LM_BLOCK = 3 * GROUP  # the lm phase's prompts come from this block, through a store of its own
+# B6 against its plain version, (rtol, atol). bf16 y: both sides round an f32
+# sum once, so they differ by at most one bf16 ulp (2^-7 of the value) past
+# the f32 rows' 1e-5 for the order of the sum
+B6_TOL = {"y_f32": (1e-5, 1e-5), "y_bf16": (8e-3, 1e-5), "state": (1e-4, 1e-4), "total": (1e-5, 1e-5)}
 WORK = ROOT / "build" / "smoke_data"
 
 
@@ -159,13 +183,14 @@ def copy_overlap_us(events) -> tuple[float, float]:
     return sum(b - a for a, b in copies), both
 
 
-def profile_window(fn) -> dict:
+def profile_window(fn, focus: str = "") -> dict:
     """Run ``fn(0)`` on the host clock and ``fn(1)``, the same work, under
     torch.profiler: the wall time of the first, the device time of every
     kernel and copy by name in the second, the device busy share (device
     time over the unprofiled wall time; null when the profiler saw no device
-    activity), and how much of the host->device copy time overlapped a
-    kernel."""
+    activity), how much of the host->device copy time overlapped a kernel,
+    and with ``focus`` the device time and share of the kernels whose name
+    holds it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -181,10 +206,15 @@ def profile_window(fn) -> dict:
                    if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
     htod_us, htod_under_kernel_us = copy_overlap_us(prof.events())
-    return {"wall_ms": wall_us / 1e3, "device_ms": busy_us / 1e3,
-            "device_busy_share": busy_us / wall_us if rows else None,
-            "htod_ms": htod_us / 1e3, "htod_overlapping_kernels_ms": htod_under_kernel_us / 1e3,
-            "device_ms_by_name": [{"name": n[:60], "ms": t / 1e3, "count": c} for n, t, c in rows[:8]]}
+    out = {"wall_ms": wall_us / 1e3, "device_ms": busy_us / 1e3,
+           "device_busy_share": busy_us / wall_us if rows else None,
+           "htod_ms": htod_us / 1e3, "htod_overlapping_kernels_ms": htod_under_kernel_us / 1e3,
+           "device_ms_by_name": [{"name": n[:60], "ms": t / 1e3, "count": c} for n, t, c in rows[:8]]}
+    if focus:
+        f_us = sum(t for n, t, _c in rows if focus in n)
+        out.update({f"{focus}_ms": f_us / 1e3, f"{focus}_share": f_us / busy_us if busy_us else None,
+                    "device_kernels": sum(c for _n, _t, c in rows)})
+    return out
 
 
 def bound(nbytes: int, ops_: int) -> tuple[float, str]:
@@ -305,6 +335,212 @@ def check_format(out: dict, fmt: str) -> None:
         oh = out["onehot"]
         assert oh.shape == toks.shape + (4,) and bool(torch.isfinite(oh.float()).all())
         assert torch.equal(oh, ref.one_hot_ref(toks)), "onehot plane"
+
+
+def ssd_inputs(shape, x_dtype, decay: str, seed: int, dev):
+    """Inputs of B6 on the card, made from a seed. ``serve``: mamba2-370m's
+    init (A = -1..-16 over the heads, dt = softplus(z + dt_bias) with
+    dt_bias = log(expm1(0.01))); ``unit``: tests/test_kernels.py's draw;
+    ``large``: A = -1..-16 and dt near 2, so exp of the upper triangle of a
+    chunk overflows to +inf and a mask applied as a product would give NaN."""
+    Bb, nc, Q, H, P, N = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((Bb, nc, Q, H, P), generator=g, device=dev).to(x_dtype)
+    z = torch.randn((Bb, nc, Q, H), generator=g, device=dev)
+    if decay == "unit":
+        dt, A = torch.nn.functional.softplus(z), -torch.exp(torch.randn((H,), generator=g, device=dev) * 0.3)
+    else:
+        shift = 2.0 if decay == "large" else float(np.log(np.expm1(0.01)))
+        dt, A = torch.nn.functional.softplus(z + shift), -torch.linspace(1.0, 16.0, H, device=dev)
+    B = torch.randn((Bb, nc, Q, H, N), generator=g, device=dev) * 0.3
+    C = torch.randn((Bb, nc, Q, H, N), generator=g, device=dev) * 0.3
+    return x, dt, (dt * A).contiguous(), B, C
+
+
+def ssd_bound(shape, x_bytes: int) -> tuple[float, str]:
+    """B6's least time: x, dt, a, B, C read once, y, the chunk state and the
+    total written once; Q(Q+1)N + Q(Q+1)P + 2QNP f32 operations a (b, chunk,
+    head): the function is causal, so C·Bᵀ and M·(x·dt) need only their
+    Q(Q+1)/2 entries on and below the diagonal, and the state 2QNP."""
+    Bb, nc, Q, H, P, N = shape
+    rows = Bb * nc * Q * H
+    nbytes = 2 * rows * P * x_bytes + 2 * rows * 4 + 2 * rows * N * 4 + Bb * nc * H * (P * N + 1) * 4
+    return bound(nbytes, Bb * nc * H * (Q * (Q + 1) * N + Q * (Q + 1) * P + 2 * Q * N * P))
+
+
+def ssd_check(args, x_dtype) -> dict:
+    """B6 against its plain version on the same inputs: max abs errors and
+    whether each output lies within B6_TOL."""
+    y, st, tot = ssd_intra(*args)
+    yp, sp, tp = ssd_intra_plain(*args)
+    torch.cuda.synchronize()
+    ytol = B6_TOL["y_f32"] if x_dtype == torch.float32 else B6_TOL["y_bf16"]
+    out = {"finite": all(bool(torch.isfinite(t.float()).all()) for t in (y, st, tot))}
+    for key, a, b, tol in (("y", y, yp, ytol), ("state", st, sp, B6_TOL["state"]),
+                           ("total", tot, tp, B6_TOL["total"])):
+        out[f"{key}_err"] = max_abs_err(a, b)
+        out[f"{key}_ok"] = bool(torch.allclose(a.float(), b.float(), rtol=tol[0], atol=tol[1]))
+    out["match"] = out["finite"] and out["y_ok"] and out["state_ok"] and out["total_ok"]
+    return out
+
+
+def slot_tokens(prompts, P: int) -> np.ndarray:
+    """ServingEngine's slot layout: each prompt's first P tokens, left-padded."""
+    toks = np.zeros((len(prompts), P), np.int64)
+    for i, p in enumerate(prompts):
+        p = p[:P]
+        toks[i, P - len(p):] = p
+    return toks
+
+
+def state_err(a: dict, b: dict) -> float:
+    return max(max_abs_err(a[k].cpu(), b[k].cpu()) for k in a)
+
+
+def lm_phase(dev, cfg) -> int:
+    """The LM serving path on the card: 8 prompts from the Illumina container
+    through a fused kmer session of a store of its own, then two greedy
+    ``ServingEngine.generate`` calls over mamba2-370m at full width with
+    weights drawn from a seeded generator on the card. Checks the prompts
+    against the same call on the CPU (plain versions), the tokens, the
+    launch counts of the path, the card against the CPU on a 4-layer cut
+    (f32 and bf16 prefill logits of 8 x 512 tokens) and the duality of
+    chunked prefill and step-by-step decode on that cut; times prefill and
+    decode and profiles one prefill and a few decode steps. Returns B6's
+    launches on the path."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    model = lm.init_params(torch.Generator(device=dev).manual_seed(LM["seed"]), cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    k = pick_k(cfg.vocab)
+    sc = ServeConfig()
+    engine = ServingEngine(cfg, model, sc)
+    store = SageStore(max_prepared=4, group_blocks=GROUP)
+    store.register("illumina", str(WORK / "illumina.sage2"))
+    feed = dict(vocab=cfg.vocab, n_prompts=LM["prompts"], max_prompt=sc.max_prompt, kmer_k=k,
+                block_range=(LM_BLOCK, LM_BLOCK + 1))
+
+    # (a) the path: counts from 0, prompts through B1 + B5, two generate calls
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_trace_counts()
+    t0 = time.perf_counter()
+    prompts = prompts_from_store(store.session(fused=True), "illumina", **feed)
+    prompt_s = time.perf_counter() - t0
+    gens, gen_s, per_gen = [], [], []
+    for _ in range(2):
+        before = trace_counts().get("launch:ssd_intra", 0)
+        torch.cuda.synchronize()
+        g0 = time.perf_counter()
+        gens.append(np.stack(engine.generate(prompts)))
+        gen_s.append(time.perf_counter() - g0)
+        per_gen.append(trace_counts().get("launch:ssd_intra", 0) - before)
+    counts = trace_counts()
+    peak = torch.cuda.max_memory_allocated()
+    path = {kk: counts.get(f"launch:{kk}", 0) for kk in ("sage_unpack", "sage_fused", "ssd_intra")}
+    plain = {kk: v for kk, v in counts.items() if kk.startswith("plain:")}
+    assert not plain, f"the lm path ran plain versions on the card: {plain}"
+    idle = [kk for kk, n in path.items() if n == 0]
+    assert not idle, f"the lm path never launched: {idle}"
+    assert per_gen == [cfg.n_layers * sc.max_new] * 2, per_gen
+    assert len(prompts) == LM["prompts"] and all(p.size > 0 for p in prompts)
+    cpu_store = SageStore(device="cpu", group_blocks=GROUP)
+    cpu_store.register("illumina", str(WORK / "illumina.sage2"))
+    want = prompts_from_store(cpu_store.session(fused=True), "illumina", **feed)
+    assert len(want) == len(prompts) and all(np.array_equal(a, b) for a, b in zip(prompts, want)), \
+        "prompts from the card disagree with the plain versions on the CPU"
+    out = gens[0]
+    assert out.shape == (LM["prompts"], sc.max_new) and out.min() >= 0 and out.max() < cfg.vocab, out
+    assert np.array_equal(gens[0], gens[1]), "a second greedy generate gave other tokens"
+
+    # (d) time to first token (prefill of the 8 slots), decode steps, profiles
+    toks = torch.as_tensor(slot_tokens(prompts, sc.max_prompt), device=dev)
+    logits, cache = lm.prefill(model, cfg, toks)
+    assert bool(torch.isfinite(logits.float()).all()), "prefill logits not finite"
+    ttft = []
+    for _ in range(LM["prefill_runs"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = lm.prefill(model, cfg, toks)
+        torch.cuda.synchronize()
+        ttft.append((time.perf_counter() - t0) * 1e3)
+    cur = torch.argmax(logits[:, -1].float(), dim=-1)[:, None]
+    steps = sc.max_new - 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(steps):
+        lg, cache = lm.decode_step(model, cfg, cur, cache, sc.max_prompt + t)
+        cur = torch.argmax(lg[:, -1].float(), dim=-1)[:, None]
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    assert bool(torch.isfinite(lg.float()).all()), "decode logits not finite"
+    first = torch.argmax(logits[:, -1].float(), dim=-1)
+
+    def decode_window(_i):  # decode_step writes into the cache it is given: go on from the timed steps
+        tok = first[:, None]
+        for t in range(LM["profile_steps"]):
+            lg2, _ = lm.decode_step(model, cfg, tok, cache, sc.max_prompt + steps + t)
+            tok = torch.argmax(lg2[:, -1].float(), dim=-1)[:, None]
+        return tok
+
+    prof = {"prefill": profile_window(lambda _i: lm.prefill(model, cfg, toks), focus="ssd_intra"),
+            f"decode_{LM['profile_steps']}_steps": profile_window(decode_window, focus="ssd_intra")}
+    del model, engine, cache, logits, lg
+    torch.cuda.empty_cache()
+
+    # (b) the card (B6) against the CPU (plain) on a 4-layer cut, same weights
+    cut = dataclasses.replace(cfg, n_layers=LM["cut_layers"])
+    m_dev = lm.init_params(torch.Generator(device=dev).manual_seed(LM["seed"] + 1), cut, device=dev)
+    m_cpu = lm.init_params(torch.Generator().manual_seed(LM["seed"] + 1), cut, device="cpu")
+    m_cpu.load_state_dict({kk: v.cpu() for kk, v in m_dev.state_dict().items()})
+    rand = np.random.default_rng(LM["seed"]).integers(0, cfg.vocab, (LM["prompts"], sc.max_prompt))
+    t_cpu = torch.as_tensor(rand)
+    vs_cpu = {}
+    for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 5e-2)):
+        lg_d, st_d = lm.prefill(m_dev, cut, t_cpu.to(dev), dtype=dtype)
+        c0 = time.perf_counter()
+        lg_c, st_c = lm.prefill(m_cpu, cut, t_cpu, dtype=dtype)
+        name = str(dtype)[6:]
+        vs_cpu[name] = {"logits_err": max_abs_err(lg_d.cpu(), lg_c), "tol": tol,
+                        "logits_max": float(lg_c.float().abs().max()),
+                        "state_err": state_err(st_d["ssm"], st_c["ssm"]), "cpu_seconds": time.perf_counter() - c0}
+        assert bool(torch.allclose(lg_d.cpu().float(), lg_c.float(), rtol=tol, atol=tol)), (name, vs_cpu[name])
+        if dtype == torch.float32:
+            assert vs_cpu[name]["state_err"] <= 1e-3 * (1 + max(float(v.abs().max()) for v in st_c["ssm"].values())), vs_cpu
+
+    # (c) duality at full width on the cut, f32: chunked forward and prefill
+    # against step-by-step decode over 160 tokens (a full chunk and a ragged one)
+    T = LM["duality_tokens"]
+    t2 = torch.as_tensor(rand[:2, :T], device=dev)
+    with torch.no_grad():
+        full, _ = lm.forward(m_dev, cut, t2, dtype=torch.float32)
+    _lg, st_pre = lm.prefill(m_dev, cut, t2, dtype=torch.float32)
+    cache = lm.init_cache(cut, batch=2, max_len=T, device=dev)
+    outs = []
+    for t in range(T):
+        lg, cache = lm.decode_step(m_dev, cut, t2[:, t:t + 1], cache, t, dtype=torch.float32)
+        outs.append(lg[:, 0])
+    dec = torch.stack(outs, dim=1)
+    duality = {"logits_err": max_abs_err(dec, full), "state_err": state_err(cache["ssm"], st_pre["ssm"]),
+               "tol": 2e-2, "tokens": T}
+    assert bool(torch.allclose(dec, full, rtol=2e-2, atol=2e-2)), duality
+    assert all(bool(torch.allclose(cache["ssm"][kk], st_pre["ssm"][kk].float(), rtol=2e-2, atol=2e-2))
+               for kk in cache["ssm"]), duality
+    del m_dev, m_cpu
+
+    n_tok = LM["prompts"] * sc.max_new
+    emit("lm", arch=cfg.name, params=n_params, layers=cfg.n_layers, d_model=cfg.d_model,
+         ssm_heads=cfg.ssm_heads, state=cfg.ssm_state, chunk=cfg.ssm_chunk, vocab=cfg.vocab,
+         kmer_k=k, init_seconds=init_s, prompts=len(prompts), prompt_kmers=[int(p.size) for p in prompts],
+         prompt_seconds=prompt_s, max_prompt=sc.max_prompt, max_new=sc.max_new,
+         generate_seconds=gen_s, generate_tokens_per_s=[n_tok / g for g in gen_s],
+         ssd_launches_per_generate=per_gen, launches=path, plain_calls=plain,
+         peak_device_bytes=peak, ttft_ms=ttft, decode_ms_per_step=dec_s / steps * 1e3,
+         decode_tokens_per_s=LM["prompts"] * steps / dec_s, first_tokens=out[:, :8].tolist(),
+         card_vs_cpu=vs_cpu, duality=duality, profile=prof, seconds=time.perf_counter() - t_phase)
+    return path["ssd_intra"]
 
 
 def main() -> None:
@@ -472,10 +708,47 @@ def main() -> None:
             bound_ms=b_ms, bound_by=b_by, library_ms=None)
         del k_out, p_out, want
     del two, res, rows, arrays, db, packed_all
-    emit("kernels", tolerance="bit-identical (max_abs_err 0)",
+
+    # B6 SSD intra-chunk at mamba2-370m's serving shapes: prefill of 8 prompts
+    # of 512 tokens (Q = 128) and a decode step (Q = 1); bf16 x as the model
+    # runs it, f32 x, the test draw and the large-decay case as checks
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32, stated not assumed
+    torch.backends.cudnn.allow_tf32 = False
+    lm_cfg = get_arch(LM_ARCH)
+    sc0 = ServeConfig()
+    b6_shapes = {
+        "prefill": (LM["prompts"], sc0.max_prompt // lm_cfg.ssm_chunk, lm_cfg.ssm_chunk,
+                    lm_cfg.ssm_heads, lm_cfg.ssm_headdim, lm_cfg.ssm_state),
+        "decode": (LM["prompts"], 1, 1, lm_cfg.ssm_heads, lm_cfg.ssm_headdim, lm_cfg.ssm_state),
+    }
+    b6_checks, b6_rows = {}, {}
+    for i, (shp, xdt, decay) in enumerate([
+        ("prefill", torch.bfloat16, "serve"), ("decode", torch.bfloat16, "serve"),
+        ("prefill", torch.float32, "serve"), ("decode", torch.float32, "serve"),
+        ("prefill", torch.float32, "unit"), ("prefill", torch.bfloat16, "unit"),
+        ("prefill", torch.float32, "large"),
+    ]):
+        args = ssd_inputs(b6_shapes[shp], xdt, decay, seed=100 + i, dev=dev)
+        name = f"{shp}_{str(xdt)[6:]}_{decay}"
+        b6_checks[name] = ssd_check(args, xdt)
+        if decay == "serve" and xdt == torch.bfloat16:  # the shapes and type the lm path launches
+            b_ms, b_by = ssd_bound(b6_shapes[shp], 2)
+            iters = 50 if shp == "prefill" else 200
+            b6_rows[shp] = dict(
+                shape=list(b6_shapes[shp]), max_abs_err=max(b6_checks[name][f"{k}_err"] for k in ("y", "state", "total")),
+                **timings(lambda args=args: ssd_intra(*args), iters, lambda args=args: ssd_intra_plain(*args), 5),
+                bound_ms=b_ms, bound_by=b_by)
+        del args
+    table["ssd_intra"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/ssd_chunk.cu",
+        replaces="src/repro/kernels/ssd_chunk.py:22", match=all(c["match"] for c in b6_checks.values()),
+        **b6_rows["prefill"], library_ms=None, decode=b6_rows["decode"])
+    emit("kernels", tolerance={"B1-B5": "bit-identical (max_abs_err 0)",
+                               "B6": {**B6_TOL, "rule": "(rtol, atol); matmul and cuDNN TF32 off"}},
          match={k: v["match"] for k, v in table.items()},
          call_ms={k: v["call_ms"] for k, v in table.items()},
-         shapes={k: v["shape"] for k, v in table.items()})
+         shapes={k: v["shape"] for k, v in table.items()}, ssd_checks=b6_checks,
+         ssd_decode=b6_rows["decode"])
     bad = [k for k, v in table.items() if not v["match"]]
     assert not bad, f"kernels disagree with their plain versions: {bad}"
 
@@ -621,7 +894,8 @@ def main() -> None:
     counts = trace_counts()
     main_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    launches = {k: counts.get(f"launch:{k}", 0) for k in table if not k.startswith("sage_fused_")}
+    launches = {k: counts.get(f"launch:{k}", 0) for k in table
+                if not k.startswith("sage_fused_") and k != "ssd_intra"}
     launches.update({f"sage_fused_{f}": n for f, n in fused_launches.items()})
     assert sum(fused_launches.values()) == counts.get("launch:sage_fused", 0), counts
     plain = {k: v for k, v in counts.items() if k.startswith("plain:")}
@@ -671,6 +945,9 @@ def main() -> None:
     prof["cold_pipelined_fused_kmer"]["stream_stats"] = pipe_stats[0]
     prof["cold_pipelined_fused_kmer"]["stream_stats_profiled"] = pipe_stats[1]
     emit("profile", **prof)
+
+    # ---- lm: mamba2-370m at full width serves store-derived prompts --------
+    launches["ssd_intra"] = lm_phase(dev, lm_cfg)
     for k, v in table.items():
         v["launches"] = launches[k]
     kernels = [{"name": k, **{f: v[f] for f in (

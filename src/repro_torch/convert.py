@@ -1,9 +1,10 @@
 """Carry state across from the JAX package.
 
-SAGe has no weights: its state is the encoded :class:`SageFile` and the
-prepared block-major :class:`DeviceBlocks`. These functions read the JAX
-package's objects by duck typing (numpy arrays and ``meta.to_json()``), so
-this package never imports it.
+SAGe's state is the encoded :class:`SageFile` and the prepared
+block-major :class:`DeviceBlocks`; the language model that consumes its
+tokens has weights. These functions read the JAX package's objects by duck
+typing (numpy arrays, ``meta.to_json()``, nested dicts of arrays), so this
+package never imports it.
 """
 
 from __future__ import annotations
@@ -47,3 +48,28 @@ def device_blocks_from_reference(db, device="cuda") -> DeviceBlocks:
         n_blocks=int(db.n_blocks),
         device=dev,
     )
+
+
+def lm_params_from_reference(cfg, params) -> dict[str, torch.Tensor]:
+    """A ``state_dict`` for :class:`repro_torch.models.lm.Mamba2LM` holding
+    the JAX package's parameters ``params`` of ``cfg`` (its nested dict with
+    layers stacked on a leading L axis; any arrays ``np.asarray`` takes).
+    Layers are unstacked into ``layers.<i>.…``; values stay f32."""
+    if cfg.family != "ssm":
+        raise NotImplementedError(
+            f"lm_params_from_reference: family {cfg.family!r} is not ported yet "
+            f"(ROADMAP Queue A, slice 6b: LM families, training and checkpoints)"
+        )
+
+    def t(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+
+    sd = {"embed": t(params["embed"]), "norm_f": t(params["norm_f"])}
+    if not cfg.tie_embeddings:
+        sd["lm_head"] = t(params["lm_head"])
+    layers = params["layers"]
+    for i in range(cfg.n_layers):
+        sd[f"layers.{i}.norm1"] = t(np.asarray(layers["norm1"])[i])
+        for k, v in layers["ssm"].items():
+            sd[f"layers.{i}.ssm.{k}"] = t(np.asarray(v)[i])
+    return sd

@@ -34,6 +34,7 @@ SOURCES = {
     "sage_unpack": "sage_unpack.cu",
     "sage_decode": "sage_decode.cu",
     "reformat": "reformat.cu",
+    "ssd_chunk": "ssd_chunk.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

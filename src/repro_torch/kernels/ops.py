@@ -1,15 +1,20 @@
 """The port's kernels as ops: each routes by the device of its inputs —
 the hand-written CUDA kernel for CUDA tensors, the plain torch version
 (kernels/ref.py) for CPU tensors. There is no switch: the device decides.
+``ssd`` wraps the SSD intra-chunk kernel with the recurrence across chunks.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.decode_torch import DeviceBlocks
 from repro_torch.kernels import reformat
 from repro_torch.kernels.sage_decode import sage_decode_arrays, sage_fused_decode, sage_unpack
+from repro_torch.kernels.ssd_chunk import ssd_intra
+
+F32 = torch.float32
 
 
 def unpack(packed: torch.Tensor, dicts: torch.Tensor, widths) -> dict[str, torch.Tensor]:
@@ -36,3 +41,42 @@ def kmer_tokens(tokens: torch.Tensor, k: int, n_tokens=None) -> torch.Tensor:
 
 def one_hot(tokens: torch.Tensor) -> torch.Tensor:
     return reformat.one_hot(tokens)
+
+
+def ssd(x, dt, A, B_, C_, chunk: int, state0=None):
+    """Full SSD: the intra-chunk kernel (B6) and the recurrence across chunks.
+
+    x: (B,S,H,P); dt: (B,S,H) (post-softplus); A: (H,) negative; B_, C_:
+    (B,S,H,N). Returns (y (B,S,H,P) in x's dtype, final state (B,H,P,N)
+    f32). Same padding as ``models.ssm.ssd_chunked``: chunks of
+    Q = min(chunk, S), padded steps carry dt = 0. The kernel writes the
+    intra-chunk term in x's dtype, so in bf16 it is rounded before the state
+    term is added (``ssd_chunked`` rounds once)."""
+    Bb, S0, H, P = x.shape
+    N = B_.shape[-1]
+    Q = min(chunk, S0)
+    pad = (-S0) % Q
+    if pad:
+        x, dt, B_, C_ = (F.pad(t, [0, 0] * (t.dim() - 2) + [0, pad]) for t in (x, dt, B_, C_))
+    S = S0 + pad
+    nc = S // Q
+    a = dt.to(F32) * A.to(F32)[None, None, :]
+    xc = x.reshape(Bb, nc, Q, H, P).contiguous()
+    dtc = dt.reshape(Bb, nc, Q, H).to(F32).contiguous()
+    ac = a.reshape(Bb, nc, Q, H).contiguous()
+    Bc = B_.reshape(Bb, nc, Q, H, N).to(F32).contiguous()
+    Cc = C_.reshape(Bb, nc, Q, H, N).to(F32).contiguous()
+
+    y_intra, st_c, total = ssd_intra(xc, dtc, ac, Bc, Cc)
+
+    state = torch.zeros((Bb, H, P, N), dtype=F32, device=x.device) if state0 is None else state0.to(F32)
+    decay = torch.exp(total)  # (B,nc,H)
+    states_in = []  # the INCOMING state of each chunk
+    for c in range(nc):
+        states_in.append(state)
+        state = state * decay[:, c, :, None, None] + st_c[:, c]
+    states_in = torch.stack(states_in, dim=1)  # (B,nc,H,P,N)
+    cum = torch.cumsum(ac, dim=2)  # (B,nc,Q,H)
+    y_state = torch.einsum("bcqhn,bchdn->bcqhd", Cc, states_in) * torch.exp(cum)[..., None]
+    y = (y_intra.to(F32) + y_state).reshape(Bb, S, H, P)[:, :S0]
+    return y.to(x.dtype), state

@@ -6,6 +6,8 @@ sage_decode -> core.decode_torch.decode_block_arrays (batched over blocks)
 kmer_pack   -> reformat.kmer_pack_plain
 one_hot     -> reformat.one_hot_plain
 sage_fused  -> sage_decode.fused_decode_plain (gather, decode, format)
+ssd_chunk   -> models.ssm.ssd_chunked (the model's own reference path);
+               the intra-chunk block alone: ssd_chunk.ssd_intra_plain
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 from repro_torch.core.decode_torch import DeviceBlocks, decode_block_arrays
 from repro_torch.kernels.reformat import kmer_pack_plain, one_hot_plain
 from repro_torch.kernels.sage_decode import fused_decode_plain, unpack_rows_plain
+from repro_torch.models.ssm import ssd_chunked
 
 
 def sage_unpack_ref(packed: torch.Tensor, dicts: torch.Tensor, widths) -> dict[str, torch.Tensor]:
@@ -36,3 +39,8 @@ def kmer_pack_ref(tokens: torch.Tensor, k: int, n_tokens=None) -> torch.Tensor:
 
 def one_hot_ref(tokens: torch.Tensor) -> torch.Tensor:
     return one_hot_plain(tokens)
+
+
+def ssd_ref(x, dt, A, B_, C_, chunk: int, state0=None):
+    """x: (B,S,H,P) etc. The model-layer SSD reference."""
+    return ssd_chunked(x, dt, A, B_, C_, chunk, state0)

@@ -21,6 +21,8 @@ from repro_torch.core.blocks import PAD_BASE
 from repro_torch.kernels import cuda_lib
 
 I32 = torch.int32
+#: largest k whose ids (4**k + 2 at most) fit int32, as the JAX package's
+MAX_KMER_K = 15
 
 
 def kmer_pack_plain(tokens: torch.Tensor, k: int, n_tokens: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -63,8 +65,8 @@ def _lib():
 def kmer_pack(tokens: torch.Tensor, k: int, n_tokens: Optional[torch.Tensor] = None) -> torch.Tensor:
     """tokens (nb, C) int8 (+ per-block real-token counts (nb,)) ->
     (nb, C//k) int32 k-mer ids. CUDA: one thread per id."""
-    if not 1 <= k <= 8:
-        raise ValueError(f"kmer_pack: k must be in 1..8, got {k}")
+    if not 1 <= k <= MAX_KMER_K:
+        raise ValueError(f"kmer_pack: k must be in 1..{MAX_KMER_K}, got {k}")
     if tokens.dim() != 2 or tokens.dtype != torch.int8:
         raise ValueError(f"kmer_pack: tokens must be (nb, C) int8, got {tokens.dtype} {tuple(tokens.shape)}")
     if cuda_lib.on_cpu(tokens, *([] if n_tokens is None else [n_tokens])):

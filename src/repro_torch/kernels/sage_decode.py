@@ -23,7 +23,7 @@ import numpy as np
 from repro_torch.core.decode_torch import Uploader, decode_block_arrays, empty_decode, to_i32_bits
 from repro_torch.core.format import D, STREAMS
 from repro_torch.kernels import cuda_lib
-from repro_torch.kernels.reformat import kmer_pack_plain, one_hot_plain
+from repro_torch.kernels.reformat import MAX_KMER_K, kmer_pack_plain, one_hot_plain
 
 OUT_KEYS = ("tokens", "read_pos", "read_rev", "read_start", "read_len", "read_corner")
 I32 = torch.int32
@@ -313,8 +313,8 @@ def _check_fused_args(arrays, ids, valid, fmt, kmer_k) -> tuple[np.ndarray, np.n
     valid = np.asarray(valid)
     if fmt not in FUSED_EPILOGUES:
         raise ValueError(f"sage_fused_decode: fmt must be one of {tuple(FUSED_EPILOGUES)}, got {fmt!r}")
-    if fmt == "kmer" and not (isinstance(kmer_k, (int, np.integer)) and 1 <= kmer_k <= 8):
-        raise ValueError(f"sage_fused_decode: kmer needs kmer_k in 1..8, got {kmer_k!r}")
+    if fmt == "kmer" and not (isinstance(kmer_k, (int, np.integer)) and 1 <= kmer_k <= MAX_KMER_K):
+        raise ValueError(f"sage_fused_decode: kmer needs kmer_k in 1..{MAX_KMER_K}, got {kmer_k!r}")
     if ids.ndim != 1 or valid.shape != ids.shape:
         raise ValueError(f"sage_fused_decode: ids and valid must be (nb,), got {ids.shape} {valid.shape}")
     if not (np.issubdtype(ids.dtype, np.integer) or ids.size == 0):

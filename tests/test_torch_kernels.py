@@ -80,7 +80,7 @@ def test_decode_kernel_matches_plain_with_invalid_lanes(cuda, profile):
     assert_equal_dicts(got, want, ("tokens", "read_pos", "read_rev", "read_start", "read_len", "read_corner"))
 
 
-@pytest.mark.parametrize("k", range(1, 9))
+@pytest.mark.parametrize("k", range(1, 16))
 def test_kmer_kernel_matches_plain(cuda, k):
     rng = np.random.default_rng(k)
     toks = torch.as_tensor(rng.integers(0, 5, (5, 1001)).astype(np.int8), device=cuda)
@@ -105,7 +105,7 @@ def test_second_bucket_of_a_shape_builds_nothing(cuda):
     assert DT.trace_counts() == {"launch:sage_decode": 1}
 
 
-FUSED_CASES = [("2bit", None), ("kmer", 3), ("kmer", 4), ("kmer", 5), ("onehot", None)]
+FUSED_CASES = [("2bit", None), ("kmer", 3), ("kmer", 4), ("kmer", 5), ("kmer", 15), ("onehot", None)]
 
 
 @pytest.mark.parametrize("fmt,k", FUSED_CASES, ids=[f"{f}{k or ''}" for f, k in FUSED_CASES])
@@ -158,3 +158,94 @@ def test_fused_session_read_launches_only_b5(cuda):
         assert DT.trace_counts() == {"launch:sage_fused": 1}, fmt
         two = store.session().read("ds", (0, n), fmt, kmer_k=4)
         assert_equal_dicts(out, two, [k for k in two if k != "block_ids"])
+
+
+# ------------------------------------------------------------------ B6 (SSD)
+# (B, nc, Q, H, P, N): mamba2-370m's serving prefill (8 prompts of 512
+# tokens) and decode step (Q = 1), a ragged chunk with P and N past one tile
+SSD_SHAPES = {"prefill": (8, 4, 128, 32, 64, 128), "decode": (8, 1, 1, 32, 64, 128),
+              "ragged": (2, 3, 37, 3, 96, 200)}
+SSD_CASES = [("prefill", torch.float32, "mild"), ("prefill", torch.bfloat16, "mild"),
+             ("decode", torch.float32, "mild"), ("decode", torch.bfloat16, "mild"),
+             ("prefill", torch.float32, "large"), ("ragged", torch.float32, "mild")]
+
+
+def ssd_inputs(shape, dtype, decay, dev, seed=0):
+    """x, dt, a, B, C of the intra-chunk kernel. ``large``: A down to -16 and
+    dt near 2, so exp of the upper triangle overflows to +inf."""
+    Bb, nc, Q, H, P, N = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((Bb, nc, Q, H, P), generator=g, device=dev).to(dtype)
+    shift = 2.0 if decay == "large" else 0.0
+    dt = torch.nn.functional.softplus(torch.randn((Bb, nc, Q, H), generator=g, device=dev) + shift)
+    if decay == "large":
+        A = -torch.linspace(1.0, 16.0, H, device=dev)
+    else:
+        A = -torch.exp(torch.randn((H,), generator=g, device=dev) * 0.3)
+    B = torch.randn((Bb, nc, Q, H, N), generator=g, device=dev) * 0.3
+    C = torch.randn((Bb, nc, Q, H, N), generator=g, device=dev) * 0.3
+    return x, dt, dt * A, B, C
+
+
+@pytest.mark.parametrize("name,dtype,decay", SSD_CASES,
+                         ids=[f"{n}-{str(d)[6:]}-{c}" for n, d, c in SSD_CASES])
+def test_ssd_intra_kernel_matches_plain(cuda, name, dtype, decay):
+    """y within 1e-5 (f32) or one bf16 ulp past that (bf16: rtol 8e-3 =
+    2^-7 of the value; kernel and plain round an f32 sum once), the chunk
+    state within 1e-4, the total log-decay within 1e-5, no NaN."""
+    from repro_torch.kernels.ssd_chunk import ssd_intra, ssd_intra_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = ssd_inputs(SSD_SHAPES[name], dtype, decay, cuda)
+    DT.reset_trace_counts()
+    with torch.no_grad():
+        y, st, tot = ssd_intra(*args)
+        assert DT.trace_counts() == {"launch:ssd_intra": 1}
+        yp, sp, tp = ssd_intra_plain(*args)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and st.dtype == tot.dtype == torch.float32
+    assert all(bool(torch.isfinite(t.float()).all()) for t in (y, st, tot))
+    rtol = 1e-5 if dtype == torch.float32 else 8e-3
+    torch.testing.assert_close(y.float(), yp.float(), rtol=rtol, atol=1e-5)
+    torch.testing.assert_close(st, sp, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(tot, tp, rtol=1e-5, atol=1e-5)
+
+
+def test_ssd_intra_kernel_refuses_what_it_cannot_take(cuda):
+    from repro_torch.kernels.ssd_chunk import ssd_intra
+
+    x, dt, a, B, C = ssd_inputs((1, 1, 16, 2, 8, 8), torch.float32, "mild", cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd_intra(x.requires_grad_(), dt, a, B, C)
+    x = x.detach()
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ssd_intra(x.half(), dt, a, B, C)
+    with pytest.raises(ValueError, match="must be float32"):
+        ssd_intra(x, dt, a, B.double(), C)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_intra(x.transpose(3, 4).contiguous().transpose(3, 4), dt, a, B, C)
+    long = ssd_inputs((1, 1, 129, 2, 8, 8), torch.float32, "mild", cuda)
+    with pytest.raises(ValueError, match="exceeds"):
+        ssd_intra(*long)
+
+
+def test_ssd_on_card_matches_cpu(cuda):
+    """ops.ssd (B6 + the recurrence across chunks) on the card against the
+    same call on the CPU (plain): a ragged last chunk and an initial state.
+    1e-4: the recurrence's f32 cumsum and products run in another order on
+    each device."""
+    g = torch.Generator().manual_seed(5)
+    Bb, S, H, P, N = 2, 300, 8, 64, 128
+    x = torch.randn((Bb, S, H, P), generator=g)
+    dt = torch.nn.functional.softplus(torch.randn((Bb, S, H), generator=g) - 2.0)
+    A = -torch.linspace(1.0, 16.0, H)
+    B = torch.randn((Bb, S, H, N), generator=g) * 0.3
+    C = torch.randn((Bb, S, H, N), generator=g) * 0.3
+    s0 = torch.randn((Bb, H, P, N), generator=g) * 0.1
+    want = ops.ssd(x, dt, A, B, C, 128, s0)
+    DT.reset_trace_counts()
+    with torch.no_grad():
+        got = ops.ssd(*(t.to(cuda) for t in (x, dt, A, B, C)), 128, s0.to(cuda))
+    assert DT.trace_counts() == {"launch:ssd_intra": 1}
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)

@@ -71,6 +71,6 @@ def test_wrappers_route_cpu_to_plain_and_check_inputs():
     RF.one_hot(torch.as_tensor(toks))
     assert trace_counts() == {"plain:kmer_pack": 1, "plain:one_hot": 1}
     with pytest.raises(ValueError, match="k must be"):
-        RF.kmer_pack(torch.as_tensor(toks), 9)
+        RF.kmer_pack(torch.as_tensor(toks), 16)  # ids past 4**15 + 2 overflow int32
     with pytest.raises(ValueError, match="int8"):
         RF.one_hot(torch.as_tensor(toks).to(torch.int32))

@@ -1,0 +1,182 @@
+"""The port's SSD (B6's plain version, ``ops.ssd`` and the model reference
+``ssd_chunked``) against the JAX package's interpret-mode Pallas kernel,
+``ops.ssd(use_pallas=True)`` and ``ssd_chunked``, on the same numpy inputs.
+
+Tolerances are those of tests/test_kernels.py: y within 1e-5 in f32 and
+3e-2 in bf16 (the intra-chunk term is rounded to bf16 before the state
+term is added on the kernel path), states within 1e-4."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as JOPS
+from repro.kernels.ssd_chunk import ssd_intra_pallas
+from repro.models.ssm import ssd_chunked as jax_ssd_chunked
+
+from repro_torch.kernels import cuda_lib, ops, ref
+from repro_torch.kernels.ssd_chunk import ssd_intra, ssd_intra_plain
+from repro_torch.models.ssm import ssd_chunked
+
+# (B, S, H, P, N, chunk): the three shapes of test_ssd_kernel_sweep
+SWEEP = [(2, 64, 4, 16, 16, 16), (1, 128, 8, 32, 32, 32), (2, 96, 2, 64, 64, 32)]
+DTYPES = {"f32": (np.float32, jnp.float32, torch.float32), "bf16": (None, jnp.bfloat16, torch.bfloat16)}
+
+
+def make(shape, seed, *, decay="mild"):
+    """Inputs of the model's SSD as numpy: x, dt (post-softplus), A, B, C.
+    ``decay="large"``: A down to -16 and dt near 2-3, so a chunk's log-decay
+    reaches hundreds and exp of the upper triangle overflows to +inf."""
+    B, S, H, P, N, _ = shape
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    if decay == "large":
+        dt = np.log1p(np.exp(rng.standard_normal((B, S, H)) + 2.0)).astype(np.float32)
+        A = -np.linspace(1.0, 16.0, H).astype(np.float32)
+    else:
+        dt = np.log1p(np.exp(rng.standard_normal((B, S, H)))).astype(np.float32)
+        A = -np.exp(rng.standard_normal(H) * 0.3).astype(np.float32)
+    Bm = (rng.standard_normal((B, S, H, N)) * 0.3).astype(np.float32)
+    Cm = (rng.standard_normal((B, S, H, N)) * 0.3).astype(np.float32)
+    return x, dt, A, Bm, Cm
+
+
+def to_jax(arrs, xdt):
+    x, *rest = arrs
+    return (jnp.asarray(x, xdt), *(jnp.asarray(a) for a in rest))
+
+
+def to_torch(arrs, xdt):
+    x, *rest = arrs
+    return (torch.from_numpy(x).to(xdt), *(torch.from_numpy(a) for a in rest))
+
+
+def f32(a):
+    return a.float().numpy() if isinstance(a, torch.Tensor) else np.asarray(a, np.float32)
+
+
+def close(ours, theirs, tol):
+    np.testing.assert_allclose(f32(ours), f32(theirs), rtol=tol, atol=tol)
+
+
+def chunked(arrs, chunk):
+    """The intra-chunk kernel's inputs for S a multiple of the chunk."""
+    x, dt, A, Bm, Cm = arrs
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    nc = S // Q
+    a = dt * A[None, None, :]
+    return (x.reshape(B, nc, Q, H, P), dt.reshape(B, nc, Q, H), a.reshape(B, nc, Q, H),
+            Bm.reshape(B, nc, Q, H, N), Cm.reshape(B, nc, Q, H, N))
+
+
+CASES = [(s, "mild") for s in SWEEP] + [((2, 64, 4, 16, 16, 32), "large")]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape,decay", CASES, ids=[f"{s[1]}x{s[3]}-{d}" for s, d in CASES])
+def test_intra_plain_matches_pallas(shape, decay, dtype):
+    _, jdt, tdt = DTYPES[dtype]
+    arrs = chunked(make(shape, seed=shape[1] + shape[3], decay=decay), shape[-1])
+    yj, sj, tj = ssd_intra_pallas(*to_jax(arrs, jdt), interpret=True)
+    yt, st, tt = ssd_intra_plain(*to_torch(arrs, tdt))
+    assert yt.dtype == tdt and st.dtype == tt.dtype == torch.float32
+    assert np.isfinite(f32(yt)).all() and np.isfinite(f32(st)).all()
+    close(yt, yj, 1e-5 if dtype == "f32" else 3e-2)
+    close(st, sj, 1e-4)
+    close(tt, tj, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", SWEEP, ids=[f"{s[1]}x{s[3]}" for s in SWEEP])
+def test_ssd_matches_reference(shape, dtype):
+    _, jdt, tdt = DTYPES[dtype]
+    arrs = make(shape, seed=shape[1] + shape[3])
+    chunk = shape[-1]
+    cuda_lib.reset_counts()
+    y, s = ops.ssd(*to_torch(arrs, tdt), chunk)
+    assert cuda_lib.counts() == {"plain:ssd_intra": 1}  # one launch for every chunk
+    yk, sk = JOPS.ssd(*to_jax(arrs, jdt), chunk, use_pallas=True)
+    yr, sr = jax_ssd_chunked(*to_jax(arrs, jdt), chunk)
+    tol = 1e-5 if dtype == "f32" else 3e-2
+    assert y.dtype == tdt and y.shape == tuple(shape[:4])
+    for yy, ss in ((yk, sk), (yr, sr)):
+        close(y, yy, tol)
+        close(s, ss, 1e-4)
+    # the model's reference path on both sides
+    y2, s2 = ref.ssd_ref(*to_torch(arrs, tdt), chunk)
+    close(y2, yr, tol)
+    close(s2, sr, 1e-4)
+
+
+@pytest.mark.parametrize("S,chunk", [(64, 16), (50, 16), (1, 16)], ids=["aligned", "ragged", "decode"])
+def test_ssd_with_initial_state(S, chunk):
+    """``state0`` carries into the first chunk; S = 50 pads the last chunk
+    with dt = 0 steps, S = 1 is a decode step (Q = 1)."""
+    shape = (2, S, 4, 16, 16, chunk)
+    arrs = make(shape, seed=S)
+    s0 = (np.random.default_rng(7).standard_normal((2, 4, 16, 16)) * 0.1).astype(np.float32)
+    y, s = ops.ssd(*to_torch(arrs, torch.float32), chunk, state0=torch.from_numpy(s0))
+    yk, sk = JOPS.ssd(*to_jax(arrs, jnp.float32), chunk, state0=jnp.asarray(s0), use_pallas=True)
+    yr, sr = jax_ssd_chunked(*to_jax(arrs, jnp.float32), chunk, jnp.asarray(s0))
+    for yy, ss in ((yk, sk), (yr, sr)):
+        close(y, yy, 1e-5)
+        close(s, ss, 1e-4)
+    y2, s2 = ssd_chunked(*to_torch(arrs, torch.float32), chunk, torch.from_numpy(s0))
+    close(y2, yr, 1e-5)
+    close(s2, sr, 1e-4)
+
+
+def test_large_decay_has_no_nan():
+    """With A down to -16 the upper triangle's exp overflows: a mask applied
+    as a product (inf · 0) would give NaN; the select gives JAX's result."""
+    shape = (2, 64, 4, 16, 16, 32)
+    arrs = make(shape, seed=3, decay="large")
+    x, dt, a, Bm, Cm = to_torch(chunked(arrs, 32), torch.float32)
+    cum = torch.cumsum(a, dim=2)
+    upper = torch.exp(cum[:, :, None, :, :] - cum[:, :, :, None, :])  # (b,c,j,i,h): exp(cum_i - cum_j)
+    assert torch.isinf(upper).any()  # the case the select must survive
+    y, s = ops.ssd(*to_torch(arrs, torch.float32), 32)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    yk, sk = JOPS.ssd(*to_jax(arrs, jnp.float32), 32, use_pallas=True)
+    close(y, yk, 1e-5)
+    close(s, sk, 1e-4)
+
+
+def test_intra_wrapper_checks_shapes():
+    x = torch.zeros((1, 2, 4, 3, 8))
+    dt = torch.zeros((1, 2, 4, 3))
+    Bm = torch.zeros((1, 2, 4, 3, 5))
+    with pytest.raises(ValueError, match="dt"):
+        ssd_intra(x, dt[..., :2], dt, Bm, Bm)
+    with pytest.raises(ValueError, match="B_ and C_"):
+        ssd_intra(x, dt, dt, Bm, Bm[..., :4])
+    with pytest.raises(ValueError, match="x must be"):
+        ssd_intra(x[0], dt, dt, Bm, Bm)
+
+
+def test_intra_plain_accuracy_at_full_chunk():
+    """At the model's chunk (Q = 128) a chunk's log-decay reaches hundreds:
+    exp(cum_i - cum_j) of two f32 sums that large is off by ~1e-5 relative,
+    so the TPU kernel's formulation misses the 1e-5 tolerance against an
+    f64 evaluation, while the plain version (cum summed and differenced in
+    f64) meets it; both hold the state within 1e-4."""
+    Bb, nc, Q, H, P, N = 1, 2, 128, 32, 64, 128
+    arrs = chunked(make((Bb, nc * Q, H, P, N, Q), seed=21), Q)
+    x, dt, a, Bm, Cm = (torch.from_numpy(v).double() for v in arrs)
+    cum = torch.cumsum(a, dim=2)
+    tri = torch.ones((Q, Q), dtype=torch.bool).tril()[None, None, :, :, None]
+    L = torch.where(tri, torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :]), 0.0)
+    M = torch.einsum("bcqhn,bcphn->bcqph", Cm, Bm) * L
+    w = dt * torch.exp(cum[:, :, -1:, :] - cum)
+    exact = (torch.einsum("bcqph,bcphd->bcqhd", M, x * dt[..., None]),
+             torch.einsum("bcqhn,bcqhd->bchdn", Bm * w[..., None], x))  # f64 throughout
+    ours = ssd_intra_plain(*to_torch(arrs, torch.float32))
+    theirs = ssd_intra_pallas(*to_jax(arrs, jnp.float32), interpret=True)
+    np.testing.assert_allclose(f32(ours[0]), exact[0].numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(f32(ours[1]), exact[1].numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(f32(theirs[1]), exact[1].numpy(), rtol=1e-4, atol=1e-4)
+    y_err = np.abs(f32(theirs[0]) - exact[0].numpy()) - 1e-5 * np.abs(exact[0].numpy())
+    assert y_err.max() > 1e-5  # the f32-cum formulation misses 1e-5 at Q = 128
