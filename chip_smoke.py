@@ -18,8 +18,11 @@ Phases, each printing one JSON line:
            the fused kernel B5 in each format on a 256-lane bucket of
            permuted, repeated and invalid lanes, also against B2 -> B3 / B4;
            the SSD intra-chunk kernel B6 at mamba2-370m's prefill (8 x 512
-           tokens, Q = 128) and decode (Q = 1) shapes in bf16 and f32, and
-           a large-decay case (TF32 off for matmul and cuDNN)
+           tokens, Q = 128; tensor-core route) and decode (Q = 1; its own
+           route) shapes in bf16 and f32, chunks of 2, 17 and 127 steps,
+           zamba2-2.7b's N = 64, and large-decay cases in f32 and bf16 (TF32
+           off for matmul and cuDNN); B6's rows carry the share of the bound
+           reached
   main     SageStore(device="cuda"): session.read of 256-block ranges in
            2bit / kmer / onehot, a 4096-block dispatch-mode kmer stream, and
            every ONT and HiFi block in all three formats; then a fused
@@ -95,7 +98,8 @@ except ImportError as e:  # run outside a checkout of the repository
     sys.exit(2)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-INT_OPS_PER_S = 67e12  # H100 SXM non-tensor-core rate (float32 table entry; B6's f32 FMAs too)
+INT_OPS_PER_S = 67e12  # H100 SXM non-tensor-core rate (float32 table entry)
+B6_OPS_PER_S = 495e12 / 3  # B6's f32-accurate route: 3 TF32 products (3xTF32) at the dense TF32 rate
 SPIN_HZ = 2.0e9  # >= the H100's SM clock, so a spin of n cycles lasts at least n / SPIN_HZ s
 # Illumina at full width: 8 source blocks of C = 65558 tokens
 ILLUMINA = dict(ref_len=120_000, ref_seed=7, depth=4, seed=8, token_target=65536,
@@ -217,8 +221,8 @@ def profile_window(fn, focus: str = "") -> dict:
     return out
 
 
-def bound(nbytes: int, ops_: int) -> tuple[float, str]:
-    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops_ / INT_OPS_PER_S * 1e3
+def bound(nbytes: int, ops_: int, ops_per_s: float = INT_OPS_PER_S) -> tuple[float, str]:
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops_ / ops_per_s * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -359,13 +363,15 @@ def ssd_inputs(shape, x_dtype, decay: str, seed: int, dev):
 
 def ssd_bound(shape, x_bytes: int) -> tuple[float, str]:
     """B6's least time: x, dt, a, B, C read once, y, the chunk state and the
-    total written once; Q(Q+1)N + Q(Q+1)P + 2QNP f32 operations a (b, chunk,
-    head): the function is causal, so C·Bᵀ and M·(x·dt) need only their
-    Q(Q+1)/2 entries on and below the diagonal, and the state 2QNP."""
+    total written once, over HBM_BYTES_PER_S; Q(Q+1)N + Q(Q+1)P + 2QNP f32
+    operations a (b, chunk, head) over B6_OPS_PER_S (the function is causal,
+    so C·Bᵀ and M·(x·dt) need only their Q(Q+1)/2 entries on and below the
+    diagonal, and the state 2QNP); the larger of the two."""
     Bb, nc, Q, H, P, N = shape
     rows = Bb * nc * Q * H
     nbytes = 2 * rows * P * x_bytes + 2 * rows * 4 + 2 * rows * N * 4 + Bb * nc * H * (P * N + 1) * 4
-    return bound(nbytes, Bb * nc * H * (Q * (Q + 1) * N + Q * (Q + 1) * P + 2 * Q * N * P))
+    ops = Bb * nc * H * (Q * (Q + 1) * N + Q * (Q + 1) * P + 2 * Q * N * P)
+    return bound(nbytes, ops, B6_OPS_PER_S)
 
 
 def ssd_check(args, x_dtype) -> dict:
@@ -710,8 +716,10 @@ def main() -> None:
     del two, res, rows, arrays, db, packed_all
 
     # B6 SSD intra-chunk at mamba2-370m's serving shapes: prefill of 8 prompts
-    # of 512 tokens (Q = 128) and a decode step (Q = 1); bf16 x as the model
-    # runs it, f32 x, the test draw and the large-decay case as checks
+    # of 512 tokens (Q = 128, the tensor-core route) and a decode step (Q = 1,
+    # the decode route), timed in bf16 x as the model runs them; as checks f32
+    # x, the test draw, large decay in f32 and bf16, chunks of 2, 17 and 127
+    # steps and zamba2-2.7b's N = 64
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32, stated not assumed
     torch.backends.cudnn.allow_tf32 = False
     lm_cfg = get_arch(LM_ARCH)
@@ -721,23 +729,31 @@ def main() -> None:
                     lm_cfg.ssm_heads, lm_cfg.ssm_headdim, lm_cfg.ssm_state),
         "decode": (LM["prompts"], 1, 1, lm_cfg.ssm_heads, lm_cfg.ssm_headdim, lm_cfg.ssm_state),
     }
+    zcfg = get_arch("zamba2-2.7b")  # the repo's other SSM: N = 64, 80 heads
+    b6_shapes["zamba2"] = (2, 2, zcfg.ssm_chunk, zcfg.ssm_heads, zcfg.ssm_headdim, zcfg.ssm_state)
+    for q in (2, 17, 127):  # chunk tails of the prefill route
+        b6_shapes[f"q{q}"] = (2, 3, q, lm_cfg.ssm_heads, lm_cfg.ssm_headdim, lm_cfg.ssm_state)
     b6_checks, b6_rows = {}, {}
     for i, (shp, xdt, decay) in enumerate([
         ("prefill", torch.bfloat16, "serve"), ("decode", torch.bfloat16, "serve"),
         ("prefill", torch.float32, "serve"), ("decode", torch.float32, "serve"),
         ("prefill", torch.float32, "unit"), ("prefill", torch.bfloat16, "unit"),
-        ("prefill", torch.float32, "large"),
+        ("prefill", torch.float32, "large"), ("prefill", torch.bfloat16, "large"),
+        ("q2", torch.float32, "unit"), ("q17", torch.float32, "unit"), ("q127", torch.float32, "large"),
+        ("zamba2", torch.float32, "serve"), ("zamba2", torch.bfloat16, "large"),
     ]):
         args = ssd_inputs(b6_shapes[shp], xdt, decay, seed=100 + i, dev=dev)
         name = f"{shp}_{str(xdt)[6:]}_{decay}"
         b6_checks[name] = ssd_check(args, xdt)
-        if decay == "serve" and xdt == torch.bfloat16:  # the shapes and type the lm path launches
+        if shp in ("prefill", "decode") and decay == "serve" and xdt == torch.bfloat16:  # what the lm path launches
             b_ms, b_by = ssd_bound(b6_shapes[shp], 2)
             iters = 50 if shp == "prefill" else 200
-            b6_rows[shp] = dict(
+            row = dict(
                 shape=list(b6_shapes[shp]), max_abs_err=max(b6_checks[name][f"{k}_err"] for k in ("y", "state", "total")),
                 **timings(lambda args=args: ssd_intra(*args), iters, lambda args=args: ssd_intra_plain(*args), 5),
                 bound_ms=b_ms, bound_by=b_by)
+            row["bound_share"] = b_ms / row["ms"]
+            b6_rows[shp] = row
         del args
     table["ssd_intra"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/ssd_chunk.cu",
@@ -745,6 +761,8 @@ def main() -> None:
         **b6_rows["prefill"], library_ms=None, decode=b6_rows["decode"])
     emit("kernels", tolerance={"B1-B5": "bit-identical (max_abs_err 0)",
                                "B6": {**B6_TOL, "rule": "(rtol, atol); matmul and cuDNN TF32 off"}},
+         b6_ops_per_s=B6_OPS_PER_S,
+         ssd_prefill=b6_rows["prefill"],
          match={k: v["match"] for k, v in table.items()},
          call_ms={k: v["call_ms"] for k, v in table.items()},
          shapes={k: v["shape"] for k, v in table.items()}, ssd_checks=b6_checks,

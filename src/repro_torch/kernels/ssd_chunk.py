@@ -10,12 +10,17 @@ Replaces the TPU kernel ``ssd_intra_pallas`` (``_ssd_intra_kernel``). Per
 
 The linear recurrence across chunks runs outside, in ``kernels.ops.ssd``.
 The wrapper launches ``csrc/ssd_chunk.cu`` for CUDA tensors and takes the
-plain version only for CPU tensors.
+plain version only for CPU tensors. The kernel has two routes, picked from
+the shape alone: Q >= 2 (prefill) runs the three products on tensor cores
+in split-precision TF32 (f32 accuracy, whatever
+``torch.backends.cuda.matmul.allow_tf32`` says), Q = 1 (a decode step) a
+bandwidth-bound kernel that writes the state ``(x·dt) ⊗ B``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -52,13 +57,14 @@ def ssd_intra_plain(x, dt, a, B_, C_):
     return y.to(x.dtype), st, total.to(F32)
 
 
+@functools.cache
 def _lib():
     lib = cuda_lib.lib("ssd_chunk")
-    lib.ssd_intra_launch.argtypes = (
-        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-        + [ctypes.c_void_p]
-    )
-    lib.ssd_intra_launch.restype = ctypes.c_int
+    ptrs = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
+    lib.ssd_prefill_launch.argtypes = ptrs + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.ssd_decode_launch.argtypes = ptrs + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    for fn in (lib.ssd_prefill_launch, lib.ssd_decode_launch):
+        fn.restype = ctypes.c_int
     lib.ssd_error_string.restype = ctypes.c_char_p
     return lib
 
@@ -80,9 +86,10 @@ def _check_shapes(x, dt, a, B_, C_) -> None:
 def ssd_intra(x, dt, a, B_, C_):
     """The intra-chunk block; shapes and results as :func:`ssd_intra_plain`.
 
-    CUDA: one CTA per (b, c, head), f32 FMA, x in f32 or bf16 and every
-    other input f32, all contiguous, Q <= 128. The kernel has no backward
-    yet, so it refuses inputs that require grad while grad mode is on."""
+    CUDA: x in f32 or bf16 and every other input f32, all contiguous,
+    Q <= 128. Q = 1 takes the decode route, Q >= 2 the tensor-core prefill
+    route. The kernel has no backward yet, so it refuses inputs that require
+    grad while grad mode is on."""
     _check_shapes(x, dt, a, B_, C_)
     if cuda_lib.on_cpu(x, dt, a, B_, C_):
         cuda_lib.COUNTS["plain:ssd_intra"] += 1
@@ -107,12 +114,14 @@ def ssd_intra(x, dt, a, B_, C_):
     st = torch.empty((Bb, nc, H, P, N), dtype=F32, device=dev)
     total = torch.empty((Bb, nc, H), dtype=F32, device=dev)
     lib = _lib()
+    ptrs = (x.data_ptr(), int(x.dtype == torch.bfloat16), dt.data_ptr(), a.data_ptr(),
+            B_.data_ptr(), C_.data_ptr(), y.data_ptr(), st.data_ptr(), total.data_ptr())
     with torch.cuda.device(dev):
-        rc = lib.ssd_intra_launch(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), dt.data_ptr(), a.data_ptr(),
-            B_.data_ptr(), C_.data_ptr(), y.data_ptr(), st.data_ptr(), total.data_ptr(),
-            Bb, nc, Q, H, P, N, torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if Q == 1:
+            rc = lib.ssd_decode_launch(*ptrs, Bb, nc, H, P, N, stream)
+        else:
+            rc = lib.ssd_prefill_launch(*ptrs, Bb, nc, Q, H, P, N, stream)
     cuda_lib.check(rc, "ssd_intra", lib.ssd_error_string)
     cuda_lib.COUNTS["launch:ssd_intra"] += 1
     return y, st, total

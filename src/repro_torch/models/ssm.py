@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core.decode_torch import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.layers import F32, dense_init, rmsnorm
 
@@ -184,7 +185,10 @@ def ssm_decode_step(p, xin, cfg, state):
     return ssm_forward(p, xin, cfg, state)
 
 
-def ssm_init_state(cfg, batch: int, dtype=F32, device=None) -> dict:
+def ssm_init_state(cfg, batch: int, dtype=F32, device="cuda") -> dict:
+    """Zero decode state on ``device``: the card unless the caller asks
+    for the CPU; raises without a card (``decode_torch.resolve_device``)."""
+    device = resolve_device(device)
     di = cfg.d_inner or 2 * cfg.d_model
     H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
     G = cfg.ssm_groups

@@ -22,7 +22,7 @@ from repro_torch.core.encoder import SageEncoder
 from repro_torch.core.format import STREAMS
 from repro_torch.core.layout import SageContainerV2, write_v2
 from repro_torch.genomics.synth import make_reference, sample_read_set
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import cuda_lib, ops, ref
 
 pytestmark = pytest.mark.cuda
 
@@ -37,6 +37,7 @@ PROFILES = {
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernels run only on the card)")
+    cuda_lib.build_all()  # builds count as `build`: done before any test reads the counts
     return torch.device("cuda")
 
 
@@ -162,12 +163,23 @@ def test_fused_session_read_launches_only_b5(cuda):
 
 # ------------------------------------------------------------------ B6 (SSD)
 # (B, nc, Q, H, P, N): mamba2-370m's serving prefill (8 prompts of 512
-# tokens) and decode step (Q = 1), a ragged chunk with P and N past one tile
+# tokens) and decode step (Q = 1); chunks of 2, 17 and 127 steps (the
+# prefill route's tails); zamba2-2.7b's N = 64; a ragged chunk with P and N
+# past one tile; odd P and N (the kernels' 4-byte copy and scalar store
+# paths) on both routes
 SSD_SHAPES = {"prefill": (8, 4, 128, 32, 64, 128), "decode": (8, 1, 1, 32, 64, 128),
-              "ragged": (2, 3, 37, 3, 96, 200)}
+              "q2": (2, 3, 2, 4, 64, 128), "q17": (2, 3, 17, 4, 64, 128),
+              "q127": (2, 2, 127, 4, 64, 128), "zamba2": (2, 2, 128, 8, 64, 64),
+              "ragged": (2, 3, 37, 3, 96, 200), "odd": (1, 2, 45, 2, 33, 27),
+              "odd1": (1, 3, 1, 2, 33, 27)}
 SSD_CASES = [("prefill", torch.float32, "mild"), ("prefill", torch.bfloat16, "mild"),
              ("decode", torch.float32, "mild"), ("decode", torch.bfloat16, "mild"),
-             ("prefill", torch.float32, "large"), ("ragged", torch.float32, "mild")]
+             ("prefill", torch.float32, "large"), ("prefill", torch.bfloat16, "large"),
+             ("ragged", torch.float32, "mild"), ("ragged", torch.bfloat16, "mild"),
+             ("q2", torch.float32, "mild"), ("q17", torch.float32, "mild"),
+             ("q127", torch.float32, "large"), ("zamba2", torch.float32, "mild"),
+             ("zamba2", torch.bfloat16, "mild"), ("odd", torch.bfloat16, "mild"),
+             ("odd1", torch.float32, "mild")]
 
 
 def ssd_inputs(shape, dtype, decay, dev, seed=0):
@@ -209,6 +221,38 @@ def test_ssd_intra_kernel_matches_plain(cuda, name, dtype, decay):
     torch.testing.assert_close(y.float(), yp.float(), rtol=rtol, atol=1e-5)
     torch.testing.assert_close(st, sp, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(tot, tp, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["prefill", "decode"])
+def test_ssd_intra_kernel_is_deterministic(cuda, name):
+    """No atomics: two launches on the same inputs give the same bits."""
+    from repro_torch.kernels.ssd_chunk import ssd_intra
+
+    args = ssd_inputs(SSD_SHAPES[name], torch.bfloat16, "mild", cuda, seed=3)
+    with torch.no_grad():
+        one, two = ssd_intra(*args), ssd_intra(*args)
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["prefill", "decode"])
+def test_ssd_intra_kernel_ignores_allow_tf32(cuda, name):
+    """The kernel's precision is its own: the same bits with PyTorch's TF32
+    switch for matmul on and off."""
+    from repro_torch.kernels.ssd_chunk import ssd_intra
+
+    args = ssd_inputs(SSD_SHAPES[name], torch.float32, "mild", cuda, seed=4)
+    was = torch.backends.cuda.matmul.allow_tf32
+    try:
+        outs = []
+        for flag in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            with torch.no_grad():
+                outs.append(ssd_intra(*args))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 def test_ssd_intra_kernel_refuses_what_it_cannot_take(cuda):

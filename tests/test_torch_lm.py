@@ -83,7 +83,7 @@ def test_ssm_forward_matches_reference(models, dtype, with_state):
     xin = rng.standard_normal((2, 40, cfg.d_model)).astype(np.float32)
     state = None
     if with_state:
-        st = S.ssm_init_state(cfg, 2)
+        st = S.ssm_init_state(cfg, 2, device="cpu")
         state = {k: (rng.standard_normal(v.shape) * 0.3).astype(np.float32) for k, v in st.items()}
     jp = jax.tree.map(lambda a: a[0], params["layers"]["ssm"])
     jst = None if state is None else {k: jnp.asarray(v) for k, v in state.items()}
@@ -157,6 +157,18 @@ def test_decode_step_updates_the_cache_in_place(models):
     assert out is cache
     assert {k: v.data_ptr() for k, v in out["ssm"].items()} == ptrs
     assert all(bool(v.abs().sum() > 0) for v in out["ssm"].values())
+
+
+def test_ssm_init_state_defaults_to_the_card(monkeypatch):
+    """ssm_init_state builds on the CPU only when asked; its default, the
+    card, raises when torch.cuda.is_available() is False."""
+    cfg = get_arch("mamba2-370m").reduced()
+    st = S.ssm_init_state(cfg, 2, device="cpu")
+    assert all(v.device.type == "cpu" and not bool(v.any()) for v in st.values())
+    assert st["ssm"].shape == (2, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        S.ssm_init_state(cfg, 2)
 
 
 def test_entry_points_default_to_the_card():

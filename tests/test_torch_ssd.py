@@ -180,3 +180,95 @@ def test_intra_plain_accuracy_at_full_chunk():
     np.testing.assert_allclose(f32(theirs[1]), exact[1].numpy(), rtol=1e-4, atol=1e-4)
     y_err = np.abs(f32(theirs[0]) - exact[0].numpy()) - 1e-5 * np.abs(exact[0].numpy())
     assert y_err.max() > 1e-5  # the f32-cum formulation misses 1e-5 at Q = 128
+
+
+def tf32(v: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on the CPU: f32 rounded to nearest on 10
+    mantissa bits, ties away from zero (the low 13 bits cleared)."""
+    bits = v.to(torch.float32).view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_rz(v: torch.Tensor) -> torch.Tensor:
+    """What the tensor core reads of an f32 register given as a TF32
+    operand: the low 13 bits ignored, i.e. rounded toward zero."""
+    return (v.to(torch.float32).view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def split(v: torch.Tensor):
+    """The kernel's split of an f32 operand: hi = tf32(v), lo = v - hi, which
+    the MMA truncates to TF32."""
+    v = v.to(torch.float32)
+    hi = tf32(v)
+    return hi, tf32_rz(v - hi)
+
+
+def product(eq: str, a, b, passes: int) -> torch.Tensor:
+    """An einsum of f32 operands as the tensor cores take them: exact
+    products of TF32 values (summed in f64 here), one pass (hi·hi) or the
+    3xTF32 sum lo·hi + hi·lo + hi·hi."""
+    (ah, al), (bh, bl) = split(a), split(b)
+    terms = [(ah, bh)] if passes == 1 else [(al, bh), (ah, bl), (ah, bh)]
+    return sum(torch.einsum(eq, x.double(), y.double()) for x, y in terms)
+
+
+def test_split_tf32_holds_the_tolerance():
+    """Why B6's prefill route splits every operand: at mamba2-370m's
+    prefill shape (two heads), emulating the TF32 rounding of the kernel's
+    operands of C·Bᵀ and M·(x·dt), one TF32 pass misses 1e-5 on y against
+    an f64 evaluation, while the 3xTF32 sum meets it (and the state's
+    product 1e-4)."""
+    Bb, nc, Q, H, P, N = 8, 4, 128, 2, 64, 128
+    x, dt, a, Bm, Cm = (torch.from_numpy(v) for v in chunked(make((Bb, nc * Q, H, P, N, Q), seed=31), Q))
+    cum = torch.cumsum(a.double(), dim=2)
+    tri = torch.ones((Q, Q), dtype=torch.bool).tril()[None, None, :, :, None]
+    L = torch.where(tri, torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :]), 0.0)
+    xdt = x * dt[..., None]  # f32, as the kernel stages it
+    g = torch.exp((cum[:, :, -1:, :] - cum).float())
+    exact_cb = torch.einsum("bcqhn,bcphn->bcqph", Cm.double(), Bm.double())
+    exact_y = torch.einsum("bcqph,bcphd->bcqhd", exact_cb * L, xdt.double())
+    exact_st = torch.einsum("bcqhd,bcqhn->bchdn", (xdt * g[..., None]).double(), Bm.double())
+
+    def run(passes):
+        M = (product("bcqhn,bcphn->bcqph", Cm, Bm, passes).float() * L.float())
+        y = product("bcqph,bcphd->bcqhd", M, xdt, passes)
+        st = product("bcqhd,bcqhn->bchdn", xdt * g[..., None], Bm, passes)
+        return y, st
+
+    def miss(got, want, tol):
+        return float(((got - want).abs() - tol * want.abs()).max())
+
+    y1, _ = run(1)
+    y3, st3 = run(3)
+    assert miss(y1, exact_y, 1e-5) > 1e-5  # one TF32 pass misses 1e-5 on y
+    assert miss(y3, exact_y, 1e-5) <= 1e-5
+    assert miss(st3, exact_st, 1e-4) <= 1e-4
+
+
+def test_bf16_x_needs_two_tf32_products():
+    """Why B6 with bf16 x runs two MMAs a product of M·x and of the state:
+    x is exact in TF32, so its lo part is zero. Moving dt onto M (and dt·g
+    onto B) and summing lo·x + hi·x holds y to 1e-5 and the state to 1e-4
+    against f64, at mamba2-370m's prefill shape with two heads; x's own
+    TF32 rounding changes nothing."""
+    Bb, nc, Q, H, P, N = 8, 4, 128, 2, 64, 128
+    x, dt, a, Bm, Cm = (torch.from_numpy(v) for v in chunked(make((Bb, nc * Q, H, P, N, Q), seed=32), Q))
+    x = x.to(torch.bfloat16).float()
+    assert torch.equal(tf32(x), x) and torch.equal(tf32_rz(x), x)
+    cum = torch.cumsum(a.double(), dim=2)
+    tri = torch.ones((Q, Q), dtype=torch.bool).tril()[None, None, :, :, None]
+    L = torch.where(tri, torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :]), 0.0)
+    w = dt * torch.exp((cum[:, :, -1:, :] - cum).float())  # dt·g, f32 as the kernel stages it
+    cb = torch.einsum("bcqhn,bcphn->bcqph", Cm.double(), Bm.double())
+    exact_y = torch.einsum("bcqph,bcphd->bcqhd", cb * L * dt.double()[:, :, None], x.double())
+    exact_st = torch.einsum("bcqhd,bcqhn->bchdn", x.double(), (Bm * w[..., None]).double())
+
+    def two(eq, a, xe):
+        hi, lo = split(a)
+        return sum(torch.einsum(eq, t.double(), xe.double()) for t in (lo, hi))
+
+    M = product("bcqhn,bcphn->bcqph", Cm, Bm, 3).float() * L.float() * dt[:, :, None]
+    y = two("bcqph,bcphd->bcqhd", M, x)
+    st = two("bcqhn,bcqhd->bchdn", Bm * w[..., None], x)
+    assert float(((y - exact_y).abs() - 1e-5 * exact_y.abs()).max()) <= 1e-5
+    assert float(((st - exact_st).abs() - 1e-4 * exact_st.abs()).max()) <= 1e-4
