@@ -15,6 +15,7 @@ Phases, each printing one JSON line:
   kernels  each kernel against its plain torch version on the card at the
            main path's shapes, timed with CUDA events beside its bound
            (device time, and the call time that includes launch overhead);
+           B2's and B5's launch plans (grid, shared memory, global scratch);
            the fused kernel B5 in each format on a 256-lane bucket of
            permuted, repeated and invalid lanes, also against B2 -> B3 / B4;
            the SSD intra-chunk kernel B6 at mamba2-370m's prefill (8 x 512
@@ -32,7 +33,7 @@ Phases, each printing one JSON line:
            decoded block is held read for read against
            repro_torch.core.refdec, every batch against refdec's k-mer
            stream, and the launch counts of the run show the path went
-           through every kernel
+           through every kernel; the peak device memory of each step
   profile  5 warm 256-block reads (two-step and fused) and a cold
            1024-block stream (dispatch mode, and pipelined on a fused
            session), each timed on the host clock and then repeated under
@@ -48,7 +49,8 @@ Phases, each printing one JSON line:
            prefill logits against the CPU; chunked prefill against
            step-by-step decode on that cut; time to first token, decode
            ms per step, peak memory, profiles of a prefill and 8 decode steps
-Then the kernel table as one JSON line, the card's name and power limit,
+Then the kernel table as one JSON line (B2's and B5's rows with their
+launch `plan`), the card's name and power limit,
 and the final {"ok": true, ...} line. Any failure raises (exit code != 0).
 """
 
@@ -90,6 +92,7 @@ try:
     from repro_torch.data import SageTokenPipeline
     from repro_torch.genomics.synth import make_reference, sample_read_set
     from repro_torch.kernels import cuda_lib, ops, ref
+    from repro_torch.kernels.sage_decode import launch_plan
     from repro_torch.kernels.ssd_chunk import ssd_intra, ssd_intra_plain
     from repro_torch.models import lm
     from repro_torch.serving import ServeConfig, ServingEngine, prompts_from_store
@@ -646,7 +649,8 @@ def main() -> None:
         replaces="src/repro/kernels/sage_decode.py:51", shape=[BUCKET, C], max_abs_err=err,
         match=err == 0, **timings(lambda: ops.sage_decode(db), 10,
                                   lambda: ref.sage_decode_ref(db), 2),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        plan=launch_plan(caps, arrays["cons"].shape[1], BUCKET, "decode", dev))
     del p_dec
 
     # B3 k-mer and B4 one-hot on the bucket's decoded tokens
@@ -711,7 +715,8 @@ def main() -> None:
             match=err == 0,
             **timings(lambda fmt=fmt: ops.sage_fused(res, f_ids, f_valid, fmt, KMER_K), 10,
                       lambda fmt=fmt: ref.sage_fused_ref(res, f_ids, f_valid, fmt, KMER_K), 2),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            plan=launch_plan(caps, res.arrays["cons"].shape[1], BUCKET, f"fused_{fmt}", dev))
         del k_out, p_out, want
     del two, res, rows, arrays, db, packed_all
 
@@ -775,6 +780,12 @@ def main() -> None:
     oracles.update({p: Oracle(sf) for p, (sf, _s) in small.items()})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    peaks = {}  # peak device bytes of each step of the main phase
+
+    def step_peak(name: str) -> None:
+        peaks[name] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
     store = SageStore(max_prepared=16, group_blocks=GROUP)
     for name in ("illumina", "ont", "hifi"):
         store.register(name, str(WORK / f"{name}.sage2"))
@@ -796,6 +807,7 @@ def main() -> None:
             out = sess.read("illumina", rng, fmt, kmer_k=KMER_K)
         torch.cuda.synchronize()
         read_stats[fmt] = {"blocks": BUCKET, "warm_bases_per_s": 3 * bases / (time.perf_counter() - w0)}
+    step_peak("two_step_reads")
     # SAGe_ISP: a 4096-block kmer stream, dispatch depth 2
     n_stream, per_fetch = N_STREAM, PER_FETCH
     stream_start = big.meta.n_blocks - n_stream - 3 * GROUP  # away from the reads' groups
@@ -811,6 +823,7 @@ def main() -> None:
     for b in batches:
         checked += oracles["illumina"].check(b.data, b.block_ids, "stream")
         check_format(b.data, "kmer")
+    step_peak("dispatch_stream")
     small_checked = {}
     for prof in ("ont", "hifi"):
         for fmt in ("2bit", "kmer", "onehot"):
@@ -820,6 +833,7 @@ def main() -> None:
             check_format(out, fmt)
             checked += small_checked[prof]
 
+    step_peak("ont_hifi_reads")
     # ---- fused session: B5 reads, a pipelined stream, the token pipeline ----
     sess_f = store.session(fused=True)
     fused_launches = dict.fromkeys(FMTS, 0)
@@ -859,6 +873,7 @@ def main() -> None:
             got = list(st)
         return got, st.stats.to_dict()
 
+    step_peak("fused_reads")
     p0 = time.perf_counter()
     (pbatches, pstats), _d = fused_run("kmer", lambda: pipelined(PIPE_START, N_STREAM))
     torch.cuda.synchronize()
@@ -893,6 +908,7 @@ def main() -> None:
         pl2.close()
         return got, again, transfers, state
 
+    step_peak("pipelined_stream")
     t_tok = time.perf_counter()
     (tbatches, again, transfers, state), _d = fused_run("kmer", token_pipeline)
     t_tok = time.perf_counter() - t_tok
@@ -911,7 +927,8 @@ def main() -> None:
 
     counts = trace_counts()
     main_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
+    step_peak("token_pipeline")
+    peak = max(peaks.values())
     launches = {k: counts.get(f"launch:{k}", 0) for k in table
                 if not k.startswith("sage_fused_") and k != "ssd_intra"}
     launches.update({f"sage_fused_{f}": n for f, n in fused_launches.items()})
@@ -929,7 +946,7 @@ def main() -> None:
                          "blocks": n_tok_blocks, "seconds": t_tok, "transfer_stats": transfers},
          blocks_checked_against_refdec=checked,
          launches=launches, plain_calls=plain, group_uploads=store.io_stats["group_uploads"],
-         peak_device_bytes=peak, seconds=main_s)
+         peak_device_bytes=peak, peak_device_bytes_by_step=peaks, seconds=main_s)
     assert not plain, f"the main path ran plain versions on the card: {plain}"
     idle = [k for k, n in launches.items() if n == 0]
     assert not idle, f"main path never launched: {idle}"
@@ -970,7 +987,8 @@ def main() -> None:
         v["launches"] = launches[k]
     kernels = [{"name": k, **{f: v[f] for f in (
         "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-        "bound_ms", "bound_by", "library_ms")}} for k, v in table.items()]
+        "bound_ms", "bound_by", "library_ms")}, **({"plan": v["plan"]} if "plan" in v else {})}
+        for k, v in table.items()]
     shutil.rmtree(WORK)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))

@@ -14,6 +14,7 @@ block decode is :func:`repro_torch.core.decode_torch.decode_block_arrays`.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -28,7 +29,8 @@ from repro_torch.kernels.reformat import MAX_KMER_K, kmer_pack_plain, one_hot_pl
 OUT_KEYS = ("tokens", "read_pos", "read_rev", "read_start", "read_len", "read_corner")
 I32 = torch.int32
 _MAXCLS = 8
-_CTAS_PER_SM = 2  # persistent decode grid: a few CTAs per SM, looping over blocks
+#: formats B5 writes itself, and the epilogue code its launcher takes
+FUSED_EPILOGUES = {"2bit": 0, "kmer": 1, "onehot": 2}
 
 
 # --------------------------------------------------------------------------
@@ -172,7 +174,7 @@ class _DecodeParams(ctypes.Structure):
         ("read_start", ctypes.c_void_p), ("read_len", ctypes.c_void_p),
         ("read_corner", ctypes.c_void_p),
         ("scratch", ctypes.c_void_p),
-        ("slot_ints", ctypes.c_longlong),
+        ("slot_bytes", ctypes.c_longlong),
         ("ids", ctypes.c_void_p),
         ("n_reads", ctypes.c_void_p), ("n_tokens", ctypes.c_void_p),
         ("kmer", ctypes.c_void_p), ("onehot", ctypes.c_void_p),
@@ -189,7 +191,8 @@ def decode_params(arrays, outs, scratch, *, caps, classes, fixed_len) -> _Decode
     """The parameter block both decode kernels take. ``arrays`` hold the
     stream, ``cons`` and ``dir`` rows (and B2's optional ``valid`` column);
     ``outs`` the token plane and the five read planes of the lanes; ``scratch``
-    one slot per CTA. The lane count is the token plane's row count."""
+    one slot per CTA (None when a block's arrays fit in shared memory). The
+    lane count is the token plane's row count."""
     p = _DecodeParams()
     for i, s in enumerate(STREAMS):
         p.streams[i] = arrays[s].data_ptr()
@@ -213,25 +216,19 @@ def decode_params(arrays, outs, scratch, *, caps, classes, fixed_len) -> _Decode
     p.tokens = outs["tokens"].data_ptr()
     for k in OUT_KEYS[1:]:
         setattr(p, k, outs[k].data_ptr())
-    p.scratch = scratch.data_ptr()
-    p.slot_ints = scratch.shape[1]
+    p.scratch = None if scratch is None else scratch.data_ptr()
+    p.slot_bytes = 0 if scratch is None else scratch.shape[1]
     return p
 
 
 def launch_decode(lib, arrays, outs, scratch, grid, *, caps, classes, fixed_len, stream) -> int:
-    """Launch the block-decode kernel on ``grid`` CTAs (``scratch`` holds one
-    slot per CTA). Returns the CUDA error code."""
+    """Launch the block-decode kernel on ``grid`` CTAs (``scratch``: one slot
+    per CTA, or None). Returns the CUDA error code."""
     p = decode_params(arrays, outs, scratch, caps=caps, classes=classes, fixed_len=fixed_len)
     fn = lib.sage_decode_launch
     fn.argtypes = [ctypes.POINTER(_DecodeParams), ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn(ctypes.byref(p), grid, stream)
-
-
-def decode_slot_ints(lib, caps) -> int:
-    R, M, _I, _U, C = decode_dims(caps)
-    lib.sage_decode_slot_ints.restype = ctypes.c_longlong
-    return int(lib.sage_decode_slot_ints(R, M, C))
 
 
 def _check_decode_inputs(arrays, caps, classes, name="sage_decode_arrays") -> None:
@@ -253,12 +250,44 @@ def _check_decode_inputs(arrays, caps, classes, name="sage_decode_arrays") -> No
         raise ValueError(f"{name}: caps.segs and caps.tokens must be >= 1")
 
 
-def _decode_grid(lib, caps, dev, nb: int) -> tuple[int, torch.Tensor]:
-    """Bounded persistent grid (a few CTAs per SM) and its scratch, one
-    slot per CTA."""
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid = min(nb, _CTAS_PER_SM * n_sm)
-    return grid, torch.empty((grid, decode_slot_ints(lib, caps)), dtype=I32, device=dev)
+#: the kernel each launch runs (``sage_decode_plan``'s format code): B2 runs
+#: B5's 2bit kernel on rows it was given
+PLAN_KERNELS = {"decode": FUSED_EPILOGUES["2bit"], **{f"fused_{f}": c for f, c in FUSED_EPILOGUES.items()}}
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(R, M, C, cons_w, nb, fmt, dev_index) -> tuple[int, ...]:
+    lib = cuda_lib.lib("sage_decode")
+    fn = lib.sage_decode_plan
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 4)()
+    with torch.cuda.device(dev_index):
+        rc = fn(R, M, C, cons_w, nb, fmt, out)
+    lib.sage_decode_error_string.restype = ctypes.c_char_p
+    cuda_lib.check(rc, "sage_decode_plan", lib.sage_decode_error_string)
+    return tuple(int(v) for v in out)
+
+
+def launch_plan(caps, cons_w: int, nb: int, kernel: str, device) -> dict[str, int]:
+    """How ``kernel`` (a key of :data:`PLAN_KERNELS`) runs ``nb`` lanes of a
+    block shape on a CUDA ``device``: its persistent grid (as many CTAs as
+    the card holds at once, at most ``nb``), its dynamic shared memory, and
+    its global scratch (one slot per CTA; 0 when a block's arrays fit in
+    shared memory)."""
+    R, M, _I, _U, C = decode_dims(caps)
+    dev = torch.device(device)
+    grid, smem, slot, per_sm = _plan(R, M, C, int(cons_w), int(nb), PLAN_KERNELS[kernel],
+                                     dev.index if dev.index is not None else torch.cuda.current_device())
+    return {"grid": grid, "smem_bytes": smem, "slot_bytes": slot, "ctas_per_sm": per_sm,
+            "scratch_bytes": grid * slot}
+
+
+def _decode_grid(caps, cons_w, dev, nb: int, kernel: str) -> tuple[int, torch.Tensor | None]:
+    """The launch's grid and its scratch (None when it needs none)."""
+    pl = launch_plan(caps, cons_w, nb, kernel, dev)
+    slot = pl["slot_bytes"]
+    return pl["grid"], (torch.empty((pl["grid"], slot), dtype=torch.uint8, device=dev) if slot else None)
 
 
 def sage_decode_arrays(
@@ -287,7 +316,7 @@ def sage_decode_arrays(
     if nb == 0:
         return outs
     lib = cuda_lib.lib("sage_decode")
-    grid, scratch = _decode_grid(lib, caps, dev, nb)
+    grid, scratch = _decode_grid(caps, arrays["cons"].shape[1], dev, nb, "decode")
     with torch.cuda.device(dev):
         rc = launch_decode(lib, arrays, outs, scratch, grid, caps=caps, classes=classes,
                            fixed_len=fixed_len, stream=torch.cuda.current_stream().cuda_stream)
@@ -301,8 +330,6 @@ def sage_decode_arrays(
 # fused gather + decode + format (B5)
 # --------------------------------------------------------------------------
 
-#: formats B5 writes itself, and the epilogue code its launcher takes
-FUSED_EPILOGUES = {"2bit": 0, "kmer": 1, "onehot": 2}
 FUSED_COUNT_KEYS = ("n_reads", "n_tokens")
 
 
@@ -412,7 +439,7 @@ def sage_fused_decode(
         outs["onehot"] = torch.empty((nb, C, 4), dtype=torch.bfloat16, device=dev)
     (idv,) = (upload or Uploader(dev))(np.stack([ids.astype(np.int32), valid]))
     lib = cuda_lib.lib("sage_decode")
-    grid, scratch = _decode_grid(lib, caps, dev, nb)
+    grid, scratch = _decode_grid(caps, ins["cons"].shape[1], dev, nb, f"fused_{fmt}")
     with torch.cuda.device(dev):
         rc = launch_fused(lib, ins, idv, outs, scratch, grid, caps=caps, classes=classes,
                           fixed_len=fixed_len, fmt=fmt, kmer_k=kmer_k,

@@ -10,6 +10,7 @@ where JAX is not installed; on a machine with an NVIDIA GPU:
 
 The kernels are built from src/repro_torch/kernels/csrc at first use."""
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -19,10 +20,11 @@ import torch
 from repro_torch.core import decode_torch as DT
 from repro_torch.core.blocks import pad_block_ids
 from repro_torch.core.encoder import SageEncoder
-from repro_torch.core.format import STREAMS
+from repro_torch.core.format import D, STREAMS
 from repro_torch.core.layout import SageContainerV2, write_v2
 from repro_torch.genomics.synth import make_reference, sample_read_set
 from repro_torch.kernels import cuda_lib, ops, ref
+from repro_torch.kernels import sage_decode as SD
 
 pytestmark = pytest.mark.cuda
 
@@ -159,6 +161,144 @@ def test_fused_session_read_launches_only_b5(cuda):
         assert DT.trace_counts() == {"launch:sage_fused": 1}, fmt
         two = store.session().read("ds", (0, n), fmt, kmer_k=4)
         assert_equal_dicts(out, two, [k for k in two if k != "block_ids"])
+
+
+@functools.lru_cache(maxsize=None)
+def full_width():
+    """Illumina blocks at the main path's width (token_target 65536: C ~ 65 K
+    tokens, hundreds of segments and mismatches a block)."""
+    ref_seq = make_reference(40_000, seed=5)
+    sf = SageEncoder(ref_seq, token_target=65536).encode(
+        sample_read_set(ref_seq, "illumina", depth=4, seed=6))
+    assert sf.meta.caps.tokens > 60_000 and sf.meta.caps.tokens % 8, sf.meta.caps
+    return sf
+
+
+def decode_and_fused(db, padded, valid, dev, cases, plain_db=None):
+    """B2 and B5 in each (fmt, k) of ``cases`` on the same lanes, each
+    against its plain version run on ``plain_db`` (default: ``db`` itself);
+    B5 also against B2 -> B3 / B4."""
+    plain_db = plain_db or db
+    sub = DT.gather_block_arrays(db, padded, valid)
+    two = ops.sage_decode(DT.DeviceBlocks(sub, db.caps, db.classes, db.fixed_len, len(padded), dev))
+    psub = DT.gather_block_arrays(plain_db, padded, valid)
+    want = DT.decode_block_arrays(psub, caps=db.caps, classes=db.classes, fixed_len=db.fixed_len)
+    torch.cuda.synchronize()
+    assert_equal_dicts(two, want, SD.OUT_KEYS)
+    two = DT._fill_counts(dict(two), sub)
+    for fmt, k in cases:
+        got = ops.sage_fused(db, padded, valid, fmt, k)
+        plain = ref.sage_fused_ref(plain_db, padded, valid, fmt, k)
+        chain = dict(two)
+        if fmt == "kmer":
+            chain["kmer"] = ops.kmer_tokens(two["tokens"], k, two["n_tokens"])
+        elif fmt == "onehot":
+            chain["onehot"] = ops.one_hot(two["tokens"])
+        torch.cuda.synchronize()
+        assert sorted(got) == sorted(plain) == sorted(chain), fmt
+        assert_equal_dicts(got, plain, list(plain))
+        assert_equal_dicts(got, chain, list(chain))
+
+
+FULL_CASES = [("2bit", None), ("kmer", 3), ("kmer", 4), ("kmer", 15), ("onehot", None)]
+
+
+def test_decode_kernels_match_plain_on_full_width_blocks(cuda):
+    """B2 and B5 (every format, k = 3, 4, 15) at C ~ 65 K with permuted,
+    repeated and invalid lanes: the token walks' many runs, the ragged last
+    run (C % 8 != 0) and the fast and per-token paths all land in one row."""
+    db = DT.prepare_device_blocks(full_width()).to(cuda)
+    n = db.n_blocks
+    padded, valid = pad_block_ids(np.concatenate([np.arange(n)[::-1], [0, n - 1]]))
+    assert (valid == 0).any()
+    decode_and_fused(db, padded, valid, cuda, FULL_CASES)
+
+
+def with_stepping_cumlen(db, steps):
+    """A copy of ``db`` whose segment lengths are re-packed in one 32-bit
+    width class, with length ``v`` put at segment ``j`` of block ``b`` for
+    each ``(b, j, v)`` of ``steps``. A negative ``v`` makes the block's
+    running token offsets (cumlen) step down, which the encoder never
+    writes: the kernels then find each token's segment by a search instead
+    of a cursor and take no shortcut. Returns the copy and its lengths."""
+    assert not db.fixed_len
+    a = dict(db.arrays)
+    n_segs = a["dir"][:, D["n_segs"]].to(torch.int32)
+    lens = DT.decode_adaptive(a["leng"], a["lena"], n_segs, db.classes["len"], db.caps.segs).clone()
+    for b, j, v in steps:
+        lens[b, j] = v
+    a["lena"] = lens.contiguous()
+    return dataclasses.replace(db, arrays=a, classes={**db.classes, "len": (32,)}), lens
+
+
+def stepping_cases(n_segs) -> list[tuple[int, int, int]]:
+    """(block, segment, length) steps of a cumlen down, at the second, a
+    middle and the last segment of a block, by 1 up to nearly 2**31,
+    spread over the blocks (``n_segs`` holds each block's segment count)."""
+    picks = [(1, -5), ("middle", -400), ("last", -70), (2, -(2**31 - 1)), ("last", -1)]
+    out = []
+    for i, (where, v) in enumerate(picks):
+        b = i % len(n_segs)
+        n = int(n_segs[b])
+        out.append((b, {"middle": n // 2, "last": n - 1}.get(where, where), v))
+    return out
+
+
+def assert_steps_down(lens, n_segs, steps) -> None:
+    """Every block that ``steps`` touched has a cumlen that steps down."""
+    for b in {s[0] for s in steps}:
+        cum = np.cumsum(np.asarray(lens[b, : n_segs[b]].cpu(), np.int64))
+        assert (np.diff(cum) < 0).any(), b
+
+
+def test_decode_kernels_match_plain_when_cumlen_steps_down(cuda):
+    """B2 and B5 (every format) on full-width blocks with negative decoded
+    lengths, lanes permuted, repeated and invalid: the kernels' path for a
+    cumlen that is not non-decreasing (a segment search for every token, no
+    shortcut) against the plain versions. Segments that step back overlap,
+    so several substitutions can land on one token; the plain versions run
+    on the CPU, whose scatter applies them in order (the highest m wins, as
+    in the kernels), where the card's leaves the winner unspecified."""
+    host = DT.prepare_device_blocks(full_width())
+    n = host.n_blocks
+    n_segs = np.asarray(host.arrays["dir"])[:, D["n_segs"]]
+    steps = stepping_cases(n_segs)
+    bad, lens = with_stepping_cumlen(host.to(cuda), steps)
+    bad_cpu, _ = with_stepping_cumlen(host.to("cpu"), steps)
+    assert_steps_down(lens, n_segs, steps)
+    padded, valid = pad_block_ids(np.concatenate([np.arange(n)[::-1], [0, n - 1]]))
+    assert (valid == 0).any()
+    decode_and_fused(bad, padded, valid, cuda, FULL_CASES, plain_db=bad_cpu)
+
+
+def test_decode_kernels_are_deterministic(cuda):
+    """Two launches of B2 and of B5 in each format on the same inputs give
+    the same bits."""
+    db = DT.prepare_device_blocks(full_width()).to(cuda)
+    padded, valid = pad_block_ids(np.arange(db.n_blocks))
+    sub = DT.gather_block_arrays(db, padded, valid)
+    dbs = DT.DeviceBlocks(sub, db.caps, db.classes, db.fixed_len, len(padded), cuda)
+    one, again = ops.sage_decode(dbs), ops.sage_decode(dbs)
+    assert_equal_dicts(one, again, SD.OUT_KEYS)
+    for fmt, k in (("2bit", None), ("kmer", 4), ("onehot", None)):
+        one, again = (ops.sage_fused(db, padded, valid, fmt, k) for _ in range(2))
+        assert_equal_dicts(one, again, list(one))
+
+
+def test_decode_kernels_use_a_global_slot_when_shared_memory_is_short(cuda):
+    """With caps too large for shared memory (mismatch cap raised to 20000),
+    the kernels keep a block's arrays in a per-CTA slot of global scratch and
+    still match their plain versions; at the fixtures' own caps they need no
+    scratch."""
+    db = DT.prepare_device_blocks(encoded("ont")).to(cuda)
+    cons_w = db.arrays["cons"].shape[1]
+    assert SD.launch_plan(db.caps, cons_w, 4, "decode", cuda)["scratch_bytes"] == 0
+    big = dataclasses.replace(db, caps=dataclasses.replace(db.caps, mism=20_000))
+    for kernel in SD.PLAN_KERNELS:
+        plan = SD.launch_plan(big.caps, cons_w, 4, kernel, cuda)
+        assert plan["slot_bytes"] > 0 and plan["scratch_bytes"] == plan["grid"] * plan["slot_bytes"], plan
+    padded, valid = pad_block_ids(np.arange(big.n_blocks))
+    decode_and_fused(big, padded, valid, cuda, [("2bit", None), ("kmer", 5), ("onehot", None)])
 
 
 # ------------------------------------------------------------------ B6 (SSD)
