@@ -14,8 +14,11 @@ Phases, each printing one JSON line:
            sets at the test fixtures' size in their own containers
   kernels  each kernel against its plain torch version on the card at the
            main path's shapes, timed with CUDA events beside its bound
-           (device time, and the call time that includes launch overhead);
-           B2's and B5's launch plans (grid, shared memory, global scratch);
+           (device time, and the call time that includes launch overhead)
+           and the launch floor (a near-empty kernel timed the same way);
+           the launch plans of B1 and B3 (grid, threads, shared memory, and
+           registers and spills from this run's build) and of B2 and B5
+           (grid, shared memory, global scratch);
            the fused kernel B5 in each format on a 256-lane bucket of
            permuted, repeated and invalid lanes, also against B2 -> B3 / B4;
            the SSD intra-chunk kernel B6 at mamba2-370m's prefill (8 x 512
@@ -49,8 +52,9 @@ Phases, each printing one JSON line:
            prefill logits against the CPU; chunked prefill against
            step-by-step decode on that cut; time to first token, decode
            ms per step, peak memory, profiles of a prefill and 8 decode steps
-Then the kernel table as one JSON line (B2's and B5's rows with their
-launch `plan`), the card's name and power limit,
+Then the kernel table as one JSON line (B1's, B2's, B3's and B5's rows
+with their launch `plan`, B1's and B3's with the launch floor), the card's
+name and power limit,
 and the final {"ok": true, ...} line. Any failure raises (exit code != 0).
 """
 
@@ -58,6 +62,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -92,7 +97,8 @@ try:
     from repro_torch.data import SageTokenPipeline
     from repro_torch.genomics.synth import make_reference, sample_read_set
     from repro_torch.kernels import cuda_lib, ops, ref
-    from repro_torch.kernels.sage_decode import launch_plan
+    from repro_torch.kernels.reformat import kmer_plan
+    from repro_torch.kernels.sage_decode import launch_plan, unpack_plan
     from repro_torch.kernels.ssd_chunk import ssd_intra, ssd_intra_plain
     from repro_torch.models import lm
     from repro_torch.serving import ServeConfig, ServingEngine, prompts_from_store
@@ -221,6 +227,34 @@ def profile_window(fn, focus: str = "") -> dict:
         f_us = sum(t for n, t, _c in rows if focus in n)
         out.update({f"{focus}_ms": f_us / 1e3, f"{focus}_share": f_us / busy_us if busy_us else None,
                     "device_kernels": sum(c for _n, _t, c in rows)})
+    return out
+
+
+def launch_floor_ms(iters: int = 200) -> float:
+    """Device time of a near-empty launch (``torch.cuda._sleep(1)``), timed
+    as ``cuda_ms`` times a kernel: the least a launch costs in a run of
+    launches on one stream."""
+    return cuda_ms(lambda: torch.cuda._sleep(1), iters)[0]
+
+
+def ptxas_usage(lib: str, kernel: str) -> dict:
+    """Registers and spill bytes ptxas reported when this run built ``lib``,
+    for the first kernel whose mangled name holds ``kernel`` (None when the
+    library was loaded from an earlier build, whose log this run lacks)."""
+    out = {"registers": None, "spill_store_bytes": None, "spill_load_bytes": None}
+    cur = ""
+    for ln in cuda_lib.BUILD_INFO.get(lib, {}).get("log", "").splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
+        if m:
+            cur = m.group(1)
+        elif kernel in cur:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if m:
+                out["spill_store_bytes"], out["spill_load_bytes"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                out["registers"] = int(m.group(1))
+                return out
     return out
 
 
@@ -618,6 +652,7 @@ def main() -> None:
     n_tok_real = int(rdr.directory[ids, D["n_tokens"]].sum())
     R, C = caps.segs, caps.tokens
     table = {}
+    floor_ms = launch_floor_ms()
 
     # B1 unpack: one 32-row group upload
     packed = packed_all[:GROUP].contiguous()
@@ -632,7 +667,8 @@ def main() -> None:
         replaces="src/repro/kernels/sage_decode.py:270", shape=list(packed.shape), max_abs_err=err,
         match=err == 0, **timings(lambda: ops.unpack(packed, dicts, widths), 200,
                                   lambda: ref.sage_unpack_ref(packed, dicts, widths), 10),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, launch_floor_ms=floor_ms,
+        plan={**unpack_plan(GROUP, len(widths)), **ptxas_usage("sage_unpack", "sage_unpack_kernel")})
 
     # B2 decode: one 256-block bucket
     db = DeviceBlocks(arrays, caps, classes, fixed_len, BUCKET, dev)
@@ -664,7 +700,8 @@ def main() -> None:
         replaces="src/repro/kernels/reformat.py:56", shape=list(toks.shape), max_abs_err=err,
         match=err == 0, **timings(lambda: ops.kmer_tokens(toks, KMER_K, ntok), 50,
                                   lambda: ref.kmer_pack_ref(toks, KMER_K, ntok), 5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, launch_floor_ms=floor_ms,
+        plan={**kmer_plan(BUCKET, C, KMER_K), **ptxas_usage("reformat", f"kmer_kernelILi{KMER_K}E")})
     k_oh, p_oh = ops.one_hot(toks), ref.one_hot_ref(toks)
 
     def library_one_hot():
@@ -766,7 +803,7 @@ def main() -> None:
         **b6_rows["prefill"], library_ms=None, decode=b6_rows["decode"])
     emit("kernels", tolerance={"B1-B5": "bit-identical (max_abs_err 0)",
                                "B6": {**B6_TOL, "rule": "(rtol, atol); matmul and cuDNN TF32 off"}},
-         b6_ops_per_s=B6_OPS_PER_S,
+         b6_ops_per_s=B6_OPS_PER_S, launch_floor_ms=floor_ms,
          ssd_prefill=b6_rows["prefill"],
          match={k: v["match"] for k, v in table.items()},
          call_ms={k: v["call_ms"] for k, v in table.items()},
@@ -987,7 +1024,7 @@ def main() -> None:
         v["launches"] = launches[k]
     kernels = [{"name": k, **{f: v[f] for f in (
         "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-        "bound_ms", "bound_by", "library_ms")}, **({"plan": v["plan"]} if "plan" in v else {})}
+        "bound_ms", "bound_by", "library_ms")}, **{f: v[f] for f in ("plan", "launch_floor_ms") if f in v}}
         for k, v in table.items()]
     shutil.rmtree(WORK)
     emit("done", seconds=time.perf_counter() - t_start)

@@ -12,6 +12,7 @@ only for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -52,19 +53,31 @@ def one_hot_plain(tokens: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     return (t[..., None] == torch.arange(4, dtype=I32, device=tokens.device)).to(dtype)
 
 
+@functools.cache
 def _lib():
     lib = cuda_lib.lib("reformat")
     lib.kmer_pack_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.kmer_pack_launch.restype = ctypes.c_int
+    lib.kmer_pack_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.kmer_pack_plan.restype = None
     lib.one_hot_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
     lib.one_hot_launch.restype = ctypes.c_int
     lib.reformat_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def kmer_plan(nb: int, C: int, k: int) -> dict[str, object]:
+    """How the k-mer kernel runs ``nb`` rows of ``C`` tokens at ``k``: its
+    grid (row tiles, rows), threads a CTA, dynamic shared memory and ids a
+    CTA (a row tile)."""
+    out = (ctypes.c_int * 5)()
+    _lib().kmer_pack_plan(nb, C, k, out)
+    return {"grid": [out[0], out[1]], "threads": out[2], "smem_bytes": out[3], "tile_ids": out[4]}
+
+
 def kmer_pack(tokens: torch.Tensor, k: int, n_tokens: Optional[torch.Tensor] = None) -> torch.Tensor:
     """tokens (nb, C) int8 (+ per-block real-token counts (nb,)) ->
-    (nb, C//k) int32 k-mer ids. CUDA: one thread per id."""
+    (nb, C//k) int32 k-mer ids. CUDA: a CTA per 2048-id tile of a row."""
     if not 1 <= k <= MAX_KMER_K:
         raise ValueError(f"kmer_pack: k must be in 1..{MAX_KMER_K}, got {k}")
     if tokens.dim() != 2 or tokens.dtype != torch.int8:

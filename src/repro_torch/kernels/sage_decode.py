@@ -97,9 +97,25 @@ class _UnpackParams(ctypes.Structure):
     ]
 
 
+@functools.cache
+def _unpack_lib():
+    return bind_unpack(cuda_lib.lib("sage_unpack"))
+
+
+def bind_unpack(lib):
+    """Declare the unpack library's C signatures on ``lib`` (once a load)."""
+    lib.sage_unpack_launch.argtypes = [ctypes.POINTER(_UnpackParams), ctypes.c_void_p]
+    lib.sage_unpack_launch.restype = ctypes.c_int
+    lib.sage_unpack_plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.sage_unpack_plan.restype = None
+    lib.sage_unpack_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def launch_unpack(lib, packed, dicts, outs, stream) -> int:
     """Fill the kernel's parameter block and launch (returns the CUDA
-    error code). ``outs`` are preallocated (n, W_s) int32 rows."""
+    error code). ``outs`` are preallocated (n, W_s) int32 rows; ``lib`` is
+    bound by :func:`bind_unpack`."""
     p = _UnpackParams()
     p.packed = packed.data_ptr()
     p.dicts = dicts.data_ptr()
@@ -108,15 +124,20 @@ def launch_unpack(lib, packed, dicts, outs, stream) -> int:
         p.widths[i] = o.shape[1]
     p.n, p.cap = packed.shape
     p.ns = len(outs)
-    fn = lib.sage_unpack_launch
-    fn.argtypes = [ctypes.POINTER(_UnpackParams), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn(ctypes.byref(p), stream)
+    return lib.sage_unpack_launch(ctypes.byref(p), stream)
+
+
+def unpack_plan(n: int, ns: int = len(STREAMS)) -> dict[str, int]:
+    """How the unpack kernel runs ``n`` extents of ``ns`` streams: one warp
+    per (extent, stream); its grid, threads a CTA and shared memory."""
+    out = (ctypes.c_int * 3)()
+    _unpack_lib().sage_unpack_plan(n, ns, out)
+    return {"grid": out[0], "threads": out[1], "smem_bytes": out[2]}
 
 
 def sage_unpack(packed: torch.Tensor, dicts: torch.Tensor, widths) -> dict[str, torch.Tensor]:
     """Unpack codec extent payloads: (n, cap_words) int32-bit rows ->
-    stream -> (n, W_s) int32-bit rows. CUDA: one CTA per extent."""
+    stream -> (n, W_s) int32-bit rows. CUDA: one warp per (extent, stream)."""
     widths = tuple((s, int(w)) for s, w in widths)
     if packed.dtype != I32 or packed.dim() != 2:
         raise ValueError(f"sage_unpack: packed must be (n, cap) int32, got {packed.dtype} {tuple(packed.shape)}")
@@ -134,13 +155,9 @@ def sage_unpack(packed: torch.Tensor, dicts: torch.Tensor, widths) -> dict[str, 
     buf = torch.empty(n * sum(w for _s, w in widths), dtype=I32, device=packed.device)
     parts = buf.split([n * w for _s, w in widths])
     outs = [o.view(n, w) for o, (_s, w) in zip(parts, widths)]
-    lib = cuda_lib.lib("sage_unpack")
-    smem = lib.sage_unpack_smem_bytes(packed.shape[1], len(widths))
-    if smem > 227 * 1024:
-        raise ValueError(f"sage_unpack: cap_words {packed.shape[1]} exceeds shared memory")
+    lib = _unpack_lib()
     with torch.cuda.device(packed.device):
         rc = launch_unpack(lib, packed, dicts, outs, torch.cuda.current_stream().cuda_stream)
-    lib.sage_unpack_error_string.restype = ctypes.c_char_p
     cuda_lib.check(rc, "sage_unpack", lib.sage_unpack_error_string)
     cuda_lib.COUNTS["launch:sage_unpack"] += 1
     return {s: o for (s, _w), o in zip(widths, outs)}

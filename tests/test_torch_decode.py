@@ -14,11 +14,13 @@ import pytest
 import torch
 
 from repro.core.decode_jax import (
+    DeviceBlocks as RefDeviceBlocks,
     decode_blocks_bucketed as ref_bucketed,
     decode_file_jax,
     pad_block_ids as ref_pad_block_ids,
     prepare_device_blocks as ref_prepare,
 )
+from repro.kernels.ref import sage_decode_ref
 from repro.kernels.sage_decode import sage_decode_arrays as ref_pallas_decode
 
 from repro_torch.convert import device_blocks_from_reference
@@ -415,3 +417,40 @@ def test_tiled_token_pass_matches_plain_decode_when_cumlen_steps_down(tile):
     bad, lens = with_stepping_cumlen(db, steps)
     assert_steps_down(lens, n_segs, steps)
     assert model_runs(bad, tile)["row_per_token"] > 0
+
+
+def test_plain_decode_matches_reference_when_cumlen_steps_down(monkeypatch):
+    """The port's plain decode against the JAX package's vmap decoder
+    (``repro.kernels.ref.sage_decode_ref``) on illumina blocks whose cumlen
+    steps down, the same arrays handed to both as numpy: overlapping
+    segments put substitutions with different bases on one token, so the
+    two scatter-SETs must pick the same winner for every output bit to
+    agree."""
+    _, sf = encoded_case("illumina")
+    db_ref = ref_prepare(sf)
+    db = device_blocks_from_reference(db_ref, "cpu")
+    n_segs = db.arrays["dir"][:, D["n_segs"]].numpy()
+    steps = stepping_cases(n_segs)
+    bad, lens = with_stepping_cumlen(db, steps)
+    assert_steps_down(lens, n_segs, steps)
+    arrays = {k: (v.numpy() if k == "dir" else v.numpy().view(np.uint32)) for k, v in bad.arrays.items()}
+    theirs = np_tree(sage_decode_ref(RefDeviceBlocks(
+        arrays=arrays, caps=db_ref.caps, classes=bad.classes, fixed_len=db_ref.fixed_len,
+        n_blocks=db_ref.n_blocks)))
+    orig = DT._scatter
+    conflicts = []
+
+    def counted(size, fill, idx, vals, reduce):
+        if reduce == "set":
+            for row, v in zip(idx.tolist(), vals.expand_as(idx).tolist()):
+                bases = {}
+                for t, x in zip(row, v):
+                    if t < size:
+                        bases.setdefault(t, set()).add(x)
+                conflicts.append(sum(len(x) > 1 for x in bases.values()))
+        return orig(size, fill, idx, vals, reduce)
+
+    monkeypatch.setattr(DT, "_scatter", counted)
+    ours = DT.decode_block_arrays(bad.arrays, caps=bad.caps, classes=bad.classes, fixed_len=bad.fixed_len)
+    assert sum(conflicts) > 0  # some token has substitutions that disagree
+    assert_same(ours, theirs)

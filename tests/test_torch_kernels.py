@@ -70,6 +70,116 @@ def test_unpack_kernel_matches_plain(cuda, profile, tmp_path):
     assert_equal_dicts(got, want, [s for s, _ in widths])
 
 
+# stream widths of the Illumina container at token_target 65536 (sum 538)
+ILLUMINA_WIDTHS = dict(zip(STREAMS, (24, 81, 15, 111, 21, 13, 20, 64, 24, 3, 3, 3, 42, 114)))
+
+
+def codec_payloads(rng, n, widths, escape_share):
+    """(n, cap) int32 codec payloads of random stream rows, encoded by the
+    port's writer (``core.codec``): each stream's bytes come from 15 values
+    that make its dictionary, but ``escape_share`` of them are any byte
+    (escapes, mostly; more than half makes the writer store a section raw).
+    Every row is used in full but the last, which is truncated to half its
+    width. Returns (payloads, dicts)."""
+    from repro_torch.core import codec
+
+    rows = {}
+    for s, w in widths.items():
+        alphabet = rng.permutation(256)[:15].astype(np.uint8)
+        by = alphabet[rng.integers(0, 15, (n, 4 * w))]
+        esc = rng.random((n, 4 * w)) < escape_share
+        by[esc] = rng.integers(0, 256, int(esc.sum()))
+        rows[s] = np.ascontiguousarray(by).view(np.uint32).reshape(n, w)
+    dicts = codec.build_stream_dicts({s: r.ravel() for s, r in rows.items()})
+    used = np.array([[widths[s]] * n for s in STREAMS]).T
+    used[-1] = used[-1] // 2
+    words, starts, nwords = codec.encode_blocks(rows, used, codec.nibble_luts(dicts))
+    cap = int(nwords.max()) + 3
+    packed = np.zeros((n, cap), np.uint32)
+    for b in range(n):
+        packed[b, : nwords[b]] = words[starts[b] : starts[b] + nwords[b]]
+    return packed.view(np.int32), dicts
+
+
+def all_escape_payloads(rng, n, widths, stream):
+    """Payloads whose ``stream`` section is nibble coded with every nibble an
+    escape (4 * used escape bytes), the other sections raw and random."""
+    ns = len(STREAMS)
+    rows = []
+    for _ in range(n):
+        desc, nesc, body = [], [], []
+        for s in STREAMS:
+            u = widths[s]
+            if s == stream:
+                desc.append(u | (1 << 20))
+                nesc.append(4 * u)
+                body += [0xFFFFFFFF] * ((u + 1) // 2) + list(rng.integers(0, 2**32, u))
+            else:
+                desc.append(u)
+                nesc.append(0)
+                body += list(rng.integers(0, 2**32, u))
+        rows.append(desc + nesc + body)
+    assert len(rows[0]) == 2 * ns + sum(widths.values()) + (widths[stream] + 1) // 2
+    return np.array(rows, np.uint64).astype(np.uint32).view(np.int32)
+
+
+def hostile_payloads(rng, n):
+    """Random 32-bit payloads: descriptors give used words past W_s, every
+    mode (2 and 3 read as raw), escape counts past cap and negative, so
+    section offsets run past cap and wrap. Several rows have every section
+    nibble coded."""
+    cap = 200
+    packed = rng.integers(0, 2**32, (n, cap), dtype=np.uint64).astype(np.uint32)
+    packed[: n // 2, : len(STREAMS)] = (packed[: n // 2, : len(STREAMS)] & 0xFFFFF) | (1 << 20)
+    packed[0, len(STREAMS):2 * len(STREAMS)] = 2**31 - 1
+    return packed.view(np.int32)
+
+
+UNPACK_CASES = ("n1", "wide_section", "all_escapes", "all_raw", "hostile")
+
+
+@pytest.mark.parametrize("case", UNPACK_CASES)
+def test_unpack_kernel_matches_plain_on_edge_payloads(cuda, case):
+    """B1 bit for bit against its plain version: one extent; a nibble
+    section of 300 words (more than one warp's 128-word step) with
+    escapes; a section of nothing but escapes; rows the writer stores all
+    raw; hostile payloads of random words. One launch each."""
+    rng = np.random.default_rng(UNPACK_CASES.index(case))
+    widths = dict(ILLUMINA_WIDTHS)
+    dicts = rng.integers(0, 256, (len(STREAMS), 16)).astype(np.uint8)
+    if case == "n1":
+        packed, dicts = codec_payloads(rng, 1, widths, 0.1)
+    elif case == "wide_section":
+        widths["lena"] = 300
+        packed, dicts = codec_payloads(rng, 5, widths, 0.2)
+        assert (packed[:, 3] >> 20 == 1).all()  # lena is nibble coded
+    elif case == "all_escapes":
+        widths["lena"] = 300
+        packed = all_escape_payloads(rng, 3, widths, "lena")
+    elif case == "all_raw":
+        packed, dicts = codec_payloads(rng, 4, widths, 0.9)
+        assert not (packed[:, : len(STREAMS)] >> 20).any()
+    else:
+        packed = hostile_payloads(rng, 64)
+    wt = tuple(widths.items())
+    packed = torch.as_tensor(packed, device=cuda)
+    dicts = torch.as_tensor(dicts, device=cuda)
+    DT.reset_trace_counts()
+    got = ops.unpack(packed, dicts, wt)
+    assert DT.trace_counts() == {"launch:sage_unpack": 1}
+    want = ref.sage_unpack_ref(packed.cpu(), dicts.cpu(), wt)
+    torch.cuda.synchronize()
+    assert_equal_dicts(got, want, list(widths))
+
+
+def test_unpack_kernel_spreads_a_group_over_the_card(cuda):
+    """A 32-extent group runs as one warp per (extent, stream) on more CTAs
+    than extents, with no shared memory."""
+    plan = SD.unpack_plan(32)
+    assert plan["grid"] * plan["threads"] // 32 >= 32 * len(STREAMS) and plan["grid"] > 32, plan
+    assert plan["smem_bytes"] == 0
+
+
 @pytest.mark.parametrize("profile", sorted(PROFILES))
 def test_decode_kernel_matches_plain_with_invalid_lanes(cuda, profile):
     db = DT.prepare_device_blocks(encoded(profile)).to(cuda)
@@ -91,6 +201,33 @@ def test_kmer_kernel_matches_plain(cuda, k):
     for nt in (None, ntok):
         assert torch.equal(ops.kmer_tokens(toks, k, nt), ref.kmer_pack_ref(toks, k, nt))
     assert ops.kmer_tokens(toks[:0], k, ntok[:0]).shape == (0, 1001 // k)
+
+
+@pytest.mark.parametrize("C", [1001, 65558, 64, 17])
+@pytest.mark.parametrize("k", range(1, 16))
+def test_kmer_kernel_matches_plain_on_any_int8(cuda, k, C):
+    """B3 on tokens over the whole int8 range (4s and negatives included),
+    rows whose length is not a multiple of k and starts at every byte
+    alignment, with and without n_tokens (real counts, 0, past C): one row
+    and a 256-row bucket."""
+    rng = np.random.default_rng(1000 * k + C)
+    for nb in (1, 256):
+        toks = torch.as_tensor(rng.integers(-128, 128, (nb, C)).astype(np.int8), device=cuda)
+        toks[:, rng.integers(0, C, max(1, C // 9))] = 4
+        ntok = torch.as_tensor(rng.integers(0, C + k + 1, nb), dtype=torch.int32, device=cuda)
+        for nt in (None, ntok):
+            DT.reset_trace_counts()
+            got = ops.kmer_tokens(toks, k, nt)
+            assert DT.trace_counts() == {"launch:kmer_pack": 1}
+            assert torch.equal(got, ref.kmer_pack_ref(toks, k, nt)), (nb, nt is None)
+
+
+def test_kmer_kernel_tiles_rows_on_a_2d_grid(cuda):
+    from repro_torch.kernels.reformat import kmer_plan
+
+    plan = kmer_plan(256, 65558, 4)
+    assert plan["grid"] == [-(-(65558 // 4) // plan["tile_ids"]), 256], plan
+    assert plan["smem_bytes"] >= plan["tile_ids"] * 4 + 16, plan
 
 
 def test_one_hot_kernel_matches_plain(cuda):
