@@ -1,7 +1,8 @@
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: SAGe_Read, SAGe_ISP,
-the LM token pipeline and mamba2-370m serving store-derived prompts, through
-the hand-written CUDA kernels, checked against the sequential numpy decoder,
-the plain torch versions and the CPU.
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: SAGe_Write (batched),
+SAGe_Read, SAGe_ISP (streams, the exact-match filter, the store-backed
+mapper), the LM token pipeline and mamba2-370m serving store-derived
+prompts, through the hand-written CUDA kernels, checked against the
+sequential numpy encoder and decoder, the plain torch versions and the CPU.
 
     python3 chip_smoke.py
 
@@ -11,7 +12,10 @@ Phases, each printing one JSON line:
   data     an Illumina set at full block width (120 kbp reference, depth 4,
            token_target 65536: 8 blocks of C = 65558) tiled x4096 to 32768
            blocks (~2 Gbases) in a codec v2 container, plus ONT and HiFi
-           sets at the test fixtures' size in their own containers
+           sets at the test fixtures' size in their own containers; each
+           set is encoded by the sequential encoder and by the batched one
+           on the card (banded-DP kernel, B2 verify), whose SageFile must
+           equal the sequential one field for field
   kernels  each kernel against its plain torch version on the card at the
            main path's shapes, timed with CUDA events beside its bound
            (device time, and the call time that includes launch overhead)
@@ -26,7 +30,10 @@ Phases, each printing one JSON line:
            route) shapes in bf16 and f32, chunks of 2, 17 and 127 steps,
            zamba2-2.7b's N = 64, and large-decay cases in f32 and bf16 (TF32
            off for matmul and cuDNN); B6's rows carry the share of the bound
-           reached
+           reached; the banded-alignment DP on one 1024-lane chunk of the
+           batched mapper's Illumina lanes (L 150, band 24) and every case of
+           tests/dp_cases.py (widths up to 641), bit for bit, with its plan
+           (grid, threads, shared memory, ptxas registers and spills)
   main     SageStore(device="cuda"): session.read of 256-block ranges in
            2bit / kmer / onehot, a 4096-block dispatch-mode kmer stream, and
            every ONT and HiFi block in all three formats; then a fused
@@ -43,6 +50,15 @@ Phases, each printing one JSON line:
            torch.profiler: device time by kernel, the device busy share, the
            host->device copy time that overlapped a kernel, and the
            pipelined stream's stage seconds and overlap_fraction
+  encode   batched SAGe_Write on the card of ~33,300 Illumina reads over a
+           1 Mbp reference (token_target 65536): bases/s, t_map / t_pack /
+           t_verify, launch counts from 0 (DP kernel and B2, no plain
+           call), the mapper's stats, every read back by refdec, peak
+           device memory, profiles of the mapper's align_rows call and of
+           one verify (the DP kernel's total device time)
+  isp      filter_store_blocks (two-step session) and map_store_reads
+           (fused session) on 8 blocks of the Illumina container on the
+           card, each equal to the same call through a CPU store
   lm       mamba2-370m at full width (48 layers, d_model 1024, weights from
            a seeded generator on the card): 8 prompts from the Illumina
            container through a fused kmer session (k = 7; B1, B5), two
@@ -87,21 +103,29 @@ try:
         _fill_counts,
         gather_block_arrays,
         host_to_tensor,
+        prepare_device_blocks,
         reset_trace_counts,
         trace_counts,
     )
     from repro_torch.core.encoder import SageEncoder
     from repro_torch.core.format import D, STREAMS, SageFile
     from repro_torch.core.layout import SageContainerV2, write_v2
-    from repro_torch.core.refdec import decode_block
+    from repro_torch.core.refdec import decode_all, decode_block
     from repro_torch.data import SageTokenPipeline
-    from repro_torch.genomics.synth import make_reference, sample_read_set
+    from repro_torch.genomics.batch_map import _batch_candidates, _traceback_batch
+    from repro_torch.genomics.filter_torch import filter_store_blocks
+    from repro_torch.genomics.mapper import ReadMapper, map_store_reads
+    from repro_torch.genomics.synth import make_reference, revcomp, sample_read_set
     from repro_torch.kernels import cuda_lib, ops, ref
+    from repro_torch.kernels.banded_align import align_plan, align_rows, dp_inputs
     from repro_torch.kernels.reformat import kmer_plan
     from repro_torch.kernels.sage_decode import launch_plan, unpack_plan
     from repro_torch.kernels.ssd_chunk import ssd_intra, ssd_intra_plain
     from repro_torch.models import lm
     from repro_torch.serving import ServeConfig, ServingEngine, prompts_from_store
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from dp_cases import CARD_DP_CASES, scan_inputs  # the DP's card test cases (numpy + the port)
 except ImportError as e:  # run outside a checkout of the repository
     print(f"chip_smoke: cannot import the port ({e}); run from the repository root", file=sys.stderr)
     sys.exit(2)
@@ -132,6 +156,13 @@ LM_BLOCK = 3 * GROUP  # the lm phase's prompts come from this block, through a s
 # sum once, so they differ by at most one bf16 ulp (2^-7 of the value) past
 # the f32 rows' 1e-5 for the order of the sum
 B6_TOL = {"y_f32": (1e-5, 1e-5), "y_bf16": (8e-3, 1e-5), "state": (1e-4, 1e-4), "total": (1e-5, 1e-5)}
+# the encode phase: batched SAGe_Write of Illumina reads over a 1 Mbp
+# reference (~33,300 reads of 150 bases); cut: scale only (an isolate at
+# 30x would be 4.6 Mbp), read length, band and width are not cut
+ENCODE = dict(ref_len=1_000_000, ref_seed=31, depth=5, seed=32, token_target=65536)
+DP_LANES = 1024  # the kernels phase's DP chunk: one full lane bucket (MAX_CHUNK_LANES)
+DP_OPS_PER_CELL = 20  # int32 operations a DP cell a row (diag, up, masks, prefix-min, left)
+ISP_BLOCKS = (0, 8)  # the isp phase's block range of the Illumina container
 WORK = ROOT / "build" / "smoke_data"
 
 
@@ -427,6 +458,137 @@ def ssd_check(args, x_dtype) -> dict:
     return out
 
 
+def dp_lanes(reads, cons: np.ndarray, mapper, L: int = 150):
+    """The batched mapper's DP lanes of the N-free reads of length ``L``:
+    both strands stacked, each lane's top seed cluster as its candidate,
+    lanes without one or with an empty window dropped, exactly as
+    ``batch_map_reads`` hands them to ``align_rows``. Returns (rows,
+    cand, band)."""
+    fwd = np.stack([r for r in reads if r.size == L and not (r == 4).any()])
+    both = np.concatenate([fwd, np.stack([revcomp(r) for r in fwd])])
+    has, cand, _ = _batch_candidates(mapper.index, both)
+    band = mapper._band(L)
+    ws, we = np.maximum(cand - band, 0), np.minimum(cons.size, cand + L + band)
+    lanes = np.nonzero(has & (we - ws > 0))[0]
+    return both[lanes], cand[lanes], band
+
+
+def dp_check(args, band: int) -> dict:
+    """The DP kernel against its plain version on the same card tensors."""
+    mv, last = ops.banded_align(*args, band=band)
+    p_mv, p_last = ref.banded_align_ref(*args, band=band)
+    torch.cuda.synchronize()
+    return {"shape": list(mv.shape), "max_abs_err": max(max_abs_err(mv, p_mv), max_abs_err(last, p_last))}
+
+
+def encode_phase(dev) -> int:
+    """Batched SAGe_Write on the card (banded-DP kernel, B2 verify) of the
+    ENCODE read set: bases/s and the encoder's phase seconds, the path's
+    launch counts from 0 (no plain call), every read back by refdec, peak
+    device memory, and torch.profiler windows over the mapper's own
+    ``align_rows`` call (every lane of the set) and one verify. Returns the
+    DP kernel's launches on the path."""
+    e = ENCODE
+    t_phase = time.perf_counter()
+    ref_seq = make_reference(e["ref_len"], seed=e["ref_seed"])
+    rs = sample_read_set(ref_seq, "illumina", depth=e["depth"], seed=e["seed"])
+    bases = int(sum(r.size for r in rs.reads))
+    enc = SageEncoder(ref_seq, token_target=e["token_target"], device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # earlier phases' live tensors (the main store's residency)
+    reset_trace_counts()
+    t0 = time.perf_counter()
+    sf = enc.encode(rs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = trace_counts()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: counts.get(f"launch:{k}", 0) for k in ("align_scan", "sage_decode")}
+    plain = {k: v for k, v in counts.items() if k.startswith("plain:")}
+    assert not plain, f"the encode path ran plain versions on the card: {plain}"
+    assert all(launches.values()), f"the encode path never launched: {launches}"
+    c0 = time.perf_counter()
+    decoded = [np.asarray(d.seq, np.uint8) for d in decode_all(sf)]
+    assert sorted(bytes(d) for d in decoded) == sorted(bytes(np.asarray(r, np.uint8)) for r in rs.reads), \
+        "the batched encode is not lossless by refdec"
+    check_s = time.perf_counter() - c0
+    # where t_map goes, on the host clock: seeding and the DP call of the
+    # 150-base lanes as the mapper makes them, the all-lanes traceback, and
+    # the per-read mapper's seconds a read (times n_fallback: an estimate)
+    s0 = time.perf_counter()
+    rows, cand, band = dp_lanes(rs.reads, ref_seq, enc.mapper)
+    seed_s = time.perf_counter() - s0
+    dp_out = {}
+
+    def dp_call(i):
+        dp_out[i] = align_rows(rows, ref_seq, cand, band, device=dev)
+
+    prof = {"align_rows_all_lanes": profile_window(dp_call, focus="align_scan"),
+            "verify": profile_window(
+                lambda _i: enc._decode_verify_failures(sf, decoded, dev), focus="decode_kernel")}
+    s0 = time.perf_counter()
+    _traceback_batch(*dp_out[0][:2], rows, ref_seq, *dp_out[0][2:])
+    traceback_s = time.perf_counter() - s0
+    del dp_out
+    sample = np.random.default_rng(e["seed"]).choice(len(rs.reads), 200, replace=False)
+    s0 = time.perf_counter()
+    for i in sample:
+        enc.mapper.map_read(rs.reads[i])
+    map_read_s = (time.perf_counter() - s0) / sample.size
+    st = enc.stats
+    db = prepare_device_blocks(sf)
+    split = {"seeding_s": seed_s, "align_rows_wall_s": prof["align_rows_all_lanes"]["wall_ms"] / 1e3,
+             "traceback_s": traceback_s, "map_read_s_per_read": map_read_s,
+             "fallback_s_estimate": map_read_s * st["n_fallback"]}
+    emit("encode", ref_len=e["ref_len"], reads=len(rs.reads), bases=bases, blocks=sf.meta.n_blocks,
+         token_target=e["token_target"], seconds=secs, bases_per_s=bases / secs,
+         t_map=st["t_map"], t_pack=st["t_pack"], t_verify=st["t_verify"],
+         stats={k: st[k] for k in ("n_batch_mapped", "n_fallback", "n_escaped", "verify_rounds")},
+         launches=launches, plain_align_scan=counts.get("plain:align_scan", 0),
+         dp_lanes=int(rows.shape[0]), band=band, peak_device_bytes=peak, held_before_bytes=held,
+         encode_peak_device_bytes=peak - held, refdec_seconds=check_s,
+         t_map_split=split, caps=dataclasses.asdict(sf.meta.caps),
+         verify_plan=launch_plan(sf.meta.caps, db.arrays["cons"].shape[1], 1 << (sf.meta.n_blocks - 1).bit_length(),
+                                 "decode", dev),
+         align_scan_device_ms=prof["align_rows_all_lanes"]["align_scan_ms"],
+         align_scan_share_of_t_map=prof["align_rows_all_lanes"]["align_scan_ms"] / 1e3 / st["t_map"],
+         profile=prof, phase_seconds=time.perf_counter() - t_phase)
+    return launches["align_scan"]
+
+
+def isp_phase(ref_seq: np.ndarray) -> None:
+    """SAGe_ISP consumers on ISP_BLOCKS of the Illumina container through
+    card sessions: the exact-match filter (two-step session: B1, B2) and
+    the store-backed mapper (fused session: B1, B5), each against the same
+    call through a CPU store (plain versions); launch counts from 0."""
+    t_phase = time.perf_counter()
+    card = SageStore(group_blocks=GROUP)
+    cpu = SageStore(device="cpu", group_blocks=GROUP)
+    for s in (card, cpu):
+        s.register("illumina", str(WORK / "illumina.sage2"))
+    reset_trace_counts()
+    t0 = time.perf_counter()
+    masks, pruned, total = filter_store_blocks(card.session(), "illumina", ISP_BLOCKS)
+    t_filter = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep = map_store_reads(card.session(fused=True), "illumina", ref_seq, block_range=ISP_BLOCKS)
+    t_mapped = time.perf_counter() - t0
+    counts = trace_counts()
+    plain = {k: v for k, v in counts.items() if k.startswith("plain:")}
+    assert not plain, f"the isp path ran plain versions on the card: {plain}"
+    launches = {k: counts.get(f"launch:{k}", 0) for k in ("sage_unpack", "sage_decode", "sage_fused")}
+    assert all(launches.values()), f"the isp path never launched: {launches}"
+    c_masks, c_pruned, c_total = filter_store_blocks(cpu.session(), "illumina", ISP_BLOCKS)
+    assert masks.shape == c_masks.shape and np.array_equal(masks, c_masks), "filter masks: card != CPU"
+    assert (pruned, total) == (c_pruned, c_total) and 0 < pruned < total, (pruned, total, c_pruned, c_total)
+    c_rep = map_store_reads(cpu.session(fused=True), "illumina", ref_seq, block_range=ISP_BLOCKS)
+    assert dataclasses.asdict(rep) == dataclasses.asdict(c_rep), (rep, c_rep)
+    emit("isp", blocks=list(ISP_BLOCKS), filter={"pruned": pruned, "total": total, "seconds": t_filter},
+         mapping={**dataclasses.asdict(rep), "seconds": t_mapped}, launches=launches,
+         equal_to_cpu=True, seconds=time.perf_counter() - t_phase)
+
+
 def slot_tokens(prompts, P: int) -> np.ndarray:
     """ServingEngine's slot layout: each prompt's first P tokens, left-padded."""
     toks = np.zeros((len(prompts), P), np.int64)
@@ -615,9 +777,21 @@ def main() -> None:
     ill = ILLUMINA
     ref_ill = make_reference(ill["ref_len"], seed=ill["ref_seed"])
     rs = sample_read_set(ref_ill, "illumina", depth=ill["depth"], seed=ill["seed"])
-    src = SageEncoder(ref_ill, token_target=ill["token_target"]).encode(rs)
+    src = SageEncoder(ref_ill, token_target=ill["token_target"], batched=False).encode(rs)
     t_enc = time.perf_counter() - t0
     assert (src.meta.n_blocks, src.meta.caps.tokens) == (ill["blocks"], ill["tokens"]), src.meta.caps
+    # the batched encoder on the card writes the sequential encoder's file
+    batched = {}
+
+    def batched_equal(name: str, ref_seq, token_target: int, read_set, seq_file) -> None:
+        b0 = time.perf_counter()
+        enc = SageEncoder(ref_seq, token_target=token_target, device=dev)
+        diff = enc.encode(read_set).diff(seq_file)
+        assert not diff, f"{name}: the batched encoder's SageFile differs from the sequential one in {diff}"
+        batched[name] = {"seconds": time.perf_counter() - b0, **{k: enc.stats[k] for k in (
+            "n_batch_mapped", "n_fallback", "n_escaped", "verify_rounds")}}
+
+    batched_equal("illumina", ref_ill, ill["token_target"], rs, src)
     big = tile_sage_file(src, TILES)
     t0 = time.perf_counter()
     st_big = write_v2(big, WORK / "illumina.sage2")
@@ -627,15 +801,18 @@ def main() -> None:
     for prof, kw in (("ont", dict(depth=2, max_reads=14, seed=11)),
                      ("hifi", dict(depth=1, max_reads=6, seed=11))):
         t0 = time.perf_counter()
-        sf = SageEncoder(ref_small, token_target=8192).encode(sample_read_set(ref_small, prof, **kw))
+        prs = sample_read_set(ref_small, prof, **kw)
+        sf = SageEncoder(ref_small, token_target=8192, batched=False).encode(prs)
         write_v2(sf, WORK / f"{prof}.sage2")
         small[prof] = (sf, time.perf_counter() - t0)
+        batched_equal(prof, ref_small, 8192, prs, sf)
     emit("data", illumina_src_blocks=src.meta.n_blocks, blocks=big.meta.n_blocks,
          bases=int(big.directory[:, D["n_tokens"]].sum()), caps=dataclasses.asdict(src.meta.caps),
          encode_seconds=t_enc, write_seconds=t_write, container_bytes=st_big["file_nbytes"],
          cap_words=st_big["cap_words"], row_words=sum(v for k, v in block_row_widths(src.meta).items() if k != "cons"),
          small={p: {"blocks": sf.meta.n_blocks, "caps": dataclasses.asdict(sf.meta.caps), "seconds": s}
-                for p, (sf, s) in small.items()})
+                for p, (sf, s) in small.items()},
+         batched_equals_sequential=batched)
 
     # ---- kernels: kernel vs plain on the card, main-path shapes ------------
     rdr = SageContainerV2.open(WORK / "illumina.sage2")
@@ -801,14 +978,42 @@ def main() -> None:
         route="cuda", source="src/repro_torch/kernels/csrc/ssd_chunk.cu",
         replaces="src/repro/kernels/ssd_chunk.py:22", match=all(c["match"] for c in b6_checks.values()),
         **b6_rows["prefill"], library_ms=None, decode=b6_rows["decode"])
-    emit("kernels", tolerance={"B1-B5": "bit-identical (max_abs_err 0)",
+
+    # banded-alignment DP: one full lane chunk of the batched mapper on the
+    # Illumina set (1024 lanes, L 150, band 24: width 49), and every card
+    # case of tests/dp_cases.py (widths 49, 289 and 641, clipped windows,
+    # code 4, a padded bucket); bit for bit against the plain version
+    dp_rows, dp_cand, dp_band = dp_lanes(rs.reads, ref_ill, ReadMapper(ref_ill))
+    dp_args = [torch.from_numpy(a).to(dev)
+               for a in dp_inputs(dp_rows[:DP_LANES], ref_ill, dp_cand[:DP_LANES], dp_band)]
+    assert dp_args[0].shape[0] == DP_LANES, dp_args[0].shape
+    dp_main = dp_check(dp_args, dp_band)
+    dp_cases = {}
+    for name in sorted(CARD_DP_CASES):
+        arrs, band = scan_inputs(name)
+        dp_cases[name] = dp_check([torch.from_numpy(a).to(dev) for a in arrs], band)
+    B_, L_, W_ = dp_main["shape"]
+    wmax = dp_args[1].shape[1]
+    b_ms, b_by = bound(B_ * L_ * W_ + B_ * W_ * 4 + B_ * L_ * 4 + B_ * wmax * 4 + 2 * B_ * 4,
+                       DP_OPS_PER_CELL * B_ * L_ * W_)
+    dp_plan = align_plan(B_, dp_band, wmax)
+    dp_err = max([dp_main["max_abs_err"]] + [c["max_abs_err"] for c in dp_cases.values()])
+    table["align_scan"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/banded_align.cu",
+        replaces="src/repro/kernels/banded_align.py:39", shape=dp_main["shape"], max_abs_err=dp_err,
+        match=dp_err == 0, **timings(lambda: ops.banded_align(*dp_args, band=dp_band), 100,
+                                     lambda: ref.banded_align_ref(*dp_args, band=dp_band), 2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        plan={**dp_plan, **ptxas_usage("banded_align", f"align_scan_kernelILi{dp_plan['cells_per_thread']}E")})
+    del dp_args, dp_rows
+    emit("kernels", tolerance={"B1-B5, align_scan": "bit-identical (max_abs_err 0)",
                                "B6": {**B6_TOL, "rule": "(rtol, atol); matmul and cuDNN TF32 off"}},
          b6_ops_per_s=B6_OPS_PER_S, launch_floor_ms=floor_ms,
          ssd_prefill=b6_rows["prefill"],
          match={k: v["match"] for k, v in table.items()},
          call_ms={k: v["call_ms"] for k, v in table.items()},
          shapes={k: v["shape"] for k, v in table.items()}, ssd_checks=b6_checks,
-         ssd_decode=b6_rows["decode"])
+         ssd_decode=b6_rows["decode"], align_scan_cases=dp_cases)
     bad = [k for k, v in table.items() if not v["match"]]
     assert not bad, f"kernels disagree with their plain versions: {bad}"
 
@@ -967,7 +1172,7 @@ def main() -> None:
     step_peak("token_pipeline")
     peak = max(peaks.values())
     launches = {k: counts.get(f"launch:{k}", 0) for k in table
-                if not k.startswith("sage_fused_") and k != "ssd_intra"}
+                if not k.startswith("sage_fused_") and k not in ("ssd_intra", "align_scan")}
     launches.update({f"sage_fused_{f}": n for f, n in fused_launches.items()})
     assert sum(fused_launches.values()) == counts.get("launch:sage_fused", 0), counts
     plain = {k: v for k, v in counts.items() if k.startswith("plain:")}
@@ -1017,6 +1222,10 @@ def main() -> None:
     prof["cold_pipelined_fused_kmer"]["stream_stats"] = pipe_stats[0]
     prof["cold_pipelined_fused_kmer"]["stream_stats_profiled"] = pipe_stats[1]
     emit("profile", **prof)
+
+    # ---- encode: batched SAGe_Write at 1 Mbp; isp: the filter and mapper ---
+    launches["align_scan"] = encode_phase(dev)
+    isp_phase(ref_ill)
 
     # ---- lm: mamba2-370m at full width serves store-derived prompts --------
     launches["ssd_intra"] = lm_phase(dev, lm_cfg)

@@ -167,7 +167,9 @@ register_format_fuser("kmer", "kmer", lambda dec, kmer_k: kmer_pack(dec["tokens"
 
 # -- one-shot commands (compat wrappers; consumers use SageStore) -----------
 def sage_write(rs: ReadSet, consensus: np.ndarray, token_target: int = 65536, **enc_kwargs) -> SageFile:
-    """Compress a read set against a consensus (SAGe_Write)."""
+    """Compress a read set against a consensus (SAGe_Write); ``enc_kwargs``
+    go to :class:`SageEncoder` (``device=`` is where the batched encoder's
+    DP and verify run, ``"cuda"`` by default)."""
     return SageEncoder(consensus, token_target=token_target, **enc_kwargs).encode(rs)
 
 

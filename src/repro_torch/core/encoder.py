@@ -5,14 +5,21 @@ guide-array streams with dataset-adaptive bit widths, and lays the streams
 out in fixed-capacity blocks (the TPU analogue of the paper's per-channel
 partitioning).
 
-This port carries the sequential read-at-a-time pipeline only
-(``batched=False``, pure numpy). The JAX package's batched pipeline writes
-the bit-identical :class:`SageFile` faster; it needs the batched mapper and
-a banded-alignment device op, which this package does not have yet, so
-``batched=True`` raises ``NotImplementedError``.
+Two pipelines produce bit-identical containers:
 
-Compression stays on the host side of SAGe_Write — it is off the analysis
-critical path (paper footnote 7).
+* the **batched** default: mapping runs through the vectorized front-end
+  (:mod:`repro_torch.genomics.batch_map`, whose banded DP is one CUDA
+  kernel launch per lane chunk on the card), stream values live in one
+  columnar :class:`SegTable`, every block's streams pack with one
+  :func:`pack_bits` pass per stream, and losslessness is checked by
+  round-tripping the encoded blocks through the bucketed decoder (the
+  block-decode kernel on the card);
+* the **reference**: the read-at-a-time walk (``batched=False``, pure
+  numpy, no device), kept as the correctness baseline.
+
+Compression stays on the host CPU+accelerator side of SAGe_Write — it is
+off the analysis critical path (paper footnote 7) — but batching it keeps
+ingest from capping the serving path at scale.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import time
 from typing import Optional, Union
 
 import numpy as np
+import torch
 
 from repro_torch.core import tuning
 from repro_torch.core.bitio import pack_2bit, pack_bits, ranges_from_counts
@@ -242,12 +250,21 @@ class _Block:
 class SageEncoder:
     """End-to-end SAGe compression of a read set against a consensus.
 
-    Only the sequential pipeline exists here (``batched=False``, the
-    default): it maps and verifies read by read, exactly like the JAX
-    package's reference path, and writes the same :class:`SageFile`.
-    ``batched=True`` raises ``NotImplementedError`` (ROADMAP Queue A,
-    slice 3: batched SAGe_Write). ``verify`` is accepted for signature
-    parity; the sequential path always verifies per read."""
+    ``batched=True`` (default) routes SAGe_Write through the vectorized
+    pipeline (batched seeding -> banded DP on ``device`` -> columnar pack
+    -> decode-based verify on ``device``); ``batched=False`` is the
+    sequential reference, pure numpy. Both produce the :class:`SageFile`
+    of the JAX package's encoder at every ``opt_level``.
+
+    ``device`` (default ``"cuda"``) is resolved only when the batched path
+    runs: without a card it raises unless the caller passes ``"cpu"``
+    (the plain torch versions); it never falls back to the sequential path.
+
+    ``verify`` controls the batched path's losslessness check: True
+    round-trips every encoded block through the bucketed decoder and
+    demotes any mismatching read to the escape stream (the batch analogue
+    of the reference's per-read ``_verify`` walk); False trusts the mapper.
+    The reference path always walks per read."""
 
     def __init__(
         self,
@@ -256,17 +273,12 @@ class SageEncoder:
         window_target: int = 1 << 20,
         mapper: Optional[ReadMapper] = None,
         max_classes: int = 4,
-        batched: bool = False,
+        batched: bool = True,
         verify: bool = True,
         batch_min: int = 4,
         batch_max_len: int = 4096,
+        device="cuda",
     ) -> None:
-        if batched:
-            raise NotImplementedError(
-                "SageEncoder(batched=True) is not ported yet (ROADMAP Queue A, "
-                "slice 3: batched SAGe_Write); use batched=False, which writes "
-                "the same SageFile"
-            )
         self.cons = np.asarray(consensus, dtype=np.uint8)
         self.token_target = token_target
         self.window_target = window_target
@@ -276,6 +288,7 @@ class SageEncoder:
         self.verify = verify
         self.batch_min = batch_min
         self.batch_max_len = batch_max_len
+        self.device = device
         self.stats: dict[str, Union[int, float]] = {}
 
     # ------------------------------------------------------------------ map
@@ -328,11 +341,14 @@ class SageEncoder:
           2: + adaptive mismatch positions/counts/lengths (§5.1.1)
           3: + merged base/type rank coding + single-base indel flag (§5.1.2)
           4: + corner-case escapes tuned (full SAGe; default)"""
+        if self.batched:
+            return self._encode_batched(rs, opt_level)
         return self._encode_reference(rs, opt_level)
 
     def _encode_reference(self, rs: ReadSet, opt_level: int = 4) -> SageFile:
         """Sequential reference pipeline (read-at-a-time map + verify walk,
-        per-record stream accumulation)."""
+        per-record stream accumulation). Retained as the bit-exactness
+        baseline; the batched path must reproduce its output exactly."""
         per_read, _ = self._map_all(rs.reads)
         blocks = self._blockize(per_read)
 
@@ -450,6 +466,468 @@ class SageEncoder:
             consensus2b=pack_2bit(self.cons),
             directory=directory,
             streams=streams,
+        )
+
+    # ------------------------------------------------------------- batched
+    def _map_all_batched(self, reads: list[np.ndarray], device: torch.device) -> list[Optional[list[SegRecord]]]:
+        """Batched mapping front-end -> per-read SegRecords (None = escape);
+        the banded DP runs on ``device``. Unlike the reference ``_map_all``
+        there is no per-read verify walk here; losslessness is checked in
+        batch by decode round-trip."""
+        from repro_torch.genomics.batch_map import batch_map_reads
+
+        map_stats: dict = {}
+        segs_list = batch_map_reads(
+            self.mapper, reads, min_batch=self.batch_min,
+            batch_max_len=self.batch_max_len, stats=map_stats, device=device,
+        )
+        self.stats.update(map_stats)
+        out: list[Optional[list[SegRecord]]] = []
+        for read, segs in zip(reads, segs_list):
+            recs: Optional[list[SegRecord]] = None
+            if segs is not None:
+                try:
+                    recs = _segment_records(read, segs, self.cons)
+                except EscapeRead:
+                    recs = None
+            out.append(recs)
+        return out
+
+    def _ordered_records(
+        self,
+        reads: list[np.ndarray],
+        recs_list: list[Optional[list[SegRecord]]],
+        escaped: set[int],
+    ) -> tuple[list[int], list[list[SegRecord]]]:
+        """File order: mapped reads stably sorted by first-segment position,
+        then escapes in read order (exactly the reference ``_map_all``).
+        Returns (perm: file order -> read index, per-read records)."""
+        mapped = [
+            (int(recs_list[i][0].pos), i)
+            for i in range(len(reads))
+            if i not in escaped and recs_list[i] is not None
+        ]
+        mapped.sort(key=lambda t: t[0])
+        esc_ids = [i for i in range(len(reads)) if i in escaped or recs_list[i] is None]
+        perm = [i for _, i in mapped] + esc_ids
+        per_read = [recs_list[i] for _, i in mapped] + [
+            [SegRecord(
+                pos=0, length=reads[i].size, rev=False, cont=False, corner=True,
+                mp=[], mbb=[], kinds=[], ilen=[], ibases=[], esc=reads[i],
+            )]
+            for i in esc_ids
+        ]
+        return perm, per_read
+
+    def _blockize_table(self, tbl: "SegTable") -> np.ndarray:
+        """Assign a block id to every read — the reference ``_blockize`` /
+        ``fits_more`` decision replayed over precomputed per-read aggregates
+        (O(1) Python per read; all per-segment math is vectorized)."""
+        starts = tbl.read_seg_start
+        R = starts.size - 1
+        if R == 0:
+            return np.zeros(0, dtype=np.int64)
+        csL = np.concatenate([[0], np.cumsum(tbl.length)])
+        tok_r = (csL[starts[1:]] - csL[starts[:-1]]).tolist()
+        nseg_r = np.diff(starts).tolist()
+        pos_nc, end_nc = tbl.window_bounds()
+        minp_r = np.minimum.reduceat(pos_nc, starts[:-1]).tolist()
+        maxe_r = np.maximum.reduceat(end_nc, starts[:-1]).tolist()
+        blk = np.zeros(R, dtype=np.int64)
+        bid, ntok, nsegs, minp, maxe = 0, 0, 0, _SENT, 0
+        for r in range(R):
+            if nsegs:
+                fits = ntok < self.token_target
+                if fits and maxe and minp < _SENT and maxe - (minp & ~15) >= self.window_target:
+                    fits = False
+                if not fits:
+                    bid += 1
+                    ntok, nsegs, minp, maxe = 0, 0, _SENT, 0
+            blk[r] = bid
+            ntok += tok_r[r]
+            nsegs += nseg_r[r]
+            minp = min(minp, minp_r[r])
+            maxe = max(maxe, maxe_r[r])
+        return blk
+
+    def _pack_table(
+        self, tbl: "SegTable", blk_read: np.ndarray, opt_level: int, rs: ReadSet
+    ) -> SageFile:
+        """Vectorized passes B+C of the reference encoder: compute every
+        stream's value array once (columnar, whole dataset), tune classes on
+        those arrays, then emit each block with one ``pack_bits`` call per
+        stream — no per-mismatch (or per-segment) Python anywhere."""
+        S, M = tbl.pos.size, tbl.mp.size
+        nb = int(blk_read.max()) + 1 if blk_read.size else 0
+        blk_seg = blk_read[tbl.read_id] if S else np.zeros(0, dtype=np.int64)
+        lengths = tbl.length
+        fixed_len = (
+            int(lengths[0]) if S and bool(np.all(lengths == lengths[0])) else 0
+        )
+
+        # ---- stream value arrays (global, segment/mismatch order) --------
+        map_val = np.zeros(S, dtype=np.int64)
+        anchor = ~tbl.cont & ~tbl.corner
+        a_idx = np.nonzero(anchor)[0]
+        if a_idx.size:
+            prev = np.concatenate([[0], tbl.pos[a_idx[:-1]]])
+            first = np.ones(a_idx.size, dtype=bool)
+            first[1:] = blk_seg[a_idx][1:] != blk_seg[a_idx][:-1]
+            map_val[a_idx] = np.where(first, 0, tbl.pos[a_idx] - prev)
+        c_idx = np.nonzero(tbl.cont)[0]
+        if c_idx.size:
+            first_pos = tbl.pos[tbl.read_seg_start[tbl.read_id[c_idx]]]
+            d = tbl.pos[c_idx] - first_pos
+            map_val[c_idx] = np.where(d >= 0, d << 1, ((-d) << 1) - 1)  # zigzag
+        seg_m_end = np.cumsum(tbl.n_mism)
+        seg_m_start = seg_m_end - tbl.n_mism
+        m_first = np.zeros(M, dtype=bool)
+        m_first[seg_m_start[tbl.n_mism > 0]] = True
+        mp_prev = np.concatenate([[0], tbl.mp[:-1]]) if M else np.zeros(0, np.int64)
+        mp_delta = tbl.mp - np.where(m_first, 0, mp_prev)
+        rfl = tbl.rev.astype(np.int64) | (tbl.cont.astype(np.int64) << 1) | (
+            tbl.corner.astype(np.int64) << 2
+        )
+        ind = np.nonzero(tbl.is_ind)[0]
+        ilen_i = tbl.ilen[ind]
+        idg = tbl.is_ins[ind].astype(np.int64) | ((ilen_i > 1).astype(np.int64) << 1)
+        idl_multi = ilen_i[ilen_i > 1]
+
+        # ---- class tuning (pass B; identical value multisets) ------------
+        def fixed_for(vals: np.ndarray, width: int) -> tuple[int, ...]:
+            mx = int(vals.max()) if vals.size else 0
+            return (max(width, mx.bit_length()),)
+
+        len_vals = lengths if not fixed_len else np.zeros(0, dtype=np.int64)
+        classes = {
+            "map": tuning.tune_classes(map_val.astype(np.uint64), self.max_classes)
+            if opt_level >= 1 else fixed_for(map_val, 32),
+            "len": (tuning.tune_classes(len_vals.astype(np.uint64), self.max_classes) if not fixed_len else (8,))
+            if opt_level >= 2 else fixed_for(len_vals, 16),
+            "cnt": tuning.tune_classes(tbl.n_mism.astype(np.uint64), self.max_classes)
+            if opt_level >= 2 else fixed_for(tbl.n_mism, 16),
+            "mp": tuning.tune_classes(mp_delta.astype(np.uint64), self.max_classes)
+            if opt_level >= 2 else fixed_for(mp_delta, 16),
+        }
+        guide_vals = {"map": map_val, "len": len_vals, "cnt": tbl.n_mism, "mp": mp_delta}
+        guide_cls = {
+            k: tuning.assign_classes(v.astype(np.uint64), classes[k])
+            for k, v in guide_vals.items()
+        }
+        guide_w = {k: np.asarray(classes[k], dtype=np.int64) for k in classes}
+
+        # ---- per-block boundaries (cumsums over the columnar arrays) -----
+        sb = np.searchsorted(blk_seg, np.arange(nb + 1))  # seg bounds/block
+        def cs(x):
+            return np.concatenate([[0], np.cumsum(x)])
+
+        csm = cs(tbl.n_mism)[sb]  # mismatch bound at each block edge
+        csi = cs(tbl.n_indel)[sb]
+        csu = cs(tbl.n_multi)[sb]
+        csp = cs(tbl.n_insb)[sb]
+        cse = cs(tbl.n_escb)[sb]
+        cst = cs(tbl.length)[sb]
+        # len-guide bounds: len stream has one entry per segment (or none)
+        pos_nc, end_nc = tbl.window_bounds()
+        n_reads_b = np.bincount(blk_read, minlength=nb).astype(np.int64)
+        base_pos_b = np.zeros(nb, dtype=np.int64)  # first anchor pos per block
+        if a_idx.size:
+            ab, afirst = np.unique(blk_seg[a_idx], return_index=True)
+            base_pos_b[ab] = tbl.pos[a_idx[afirst]]
+
+        directory = np.zeros((nb, NDIR), dtype=np.int64)
+        caps = BlockCaps(0, 0, 0, 0, 0, 0, 0, 16)
+        words: dict[str, list[np.ndarray]] = {s: [] for s in STREAMS}
+        bitpos: dict[str, int] = {s: 0 for s in STREAMS}
+        block_bits: dict[str, int] = {s: 0 for s in STREAMS}
+        mbb_w = 2 if opt_level >= 3 else 4
+        mbb_u64 = tbl.mbb.astype(np.uint64)
+        idg_u64 = idg.astype(np.uint64)
+        idl_u64 = idl_multi.astype(np.uint64)
+        ibs_u64 = tbl.ibases.astype(np.uint64)
+        rfl_u64 = rfl.astype(np.uint64)
+        esc_u64 = tbl.esc.astype(np.uint64)
+        gvals_u64 = {k: v.astype(np.uint64) for k, v in guide_vals.items()}
+
+        for bi in range(nb):
+            s0, s1 = int(sb[bi]), int(sb[bi + 1])
+            m0, m1 = int(csm[bi]), int(csm[bi + 1])
+            i0, i1 = int(csi[bi]), int(csi[bi + 1])
+            u0, u1 = int(csu[bi]), int(csu[bi + 1])
+            p0, p1 = int(csp[bi]), int(csp[bi + 1])
+            e0, e1 = int(cse[bi]), int(cse[bi + 1])
+            row = directory[bi]
+            minp = int(pos_nc[s0:s1].min())
+            maxe = int(end_nc[s0:s1].max())
+            cons_start = (minp if minp < _SENT else 0) & ~15
+            span = max(maxe - cons_start, 16)
+            row[D["base_pos"]] = int(base_pos_b[bi])
+            row[D["n_segs"]] = s1 - s0
+            row[D["n_reads"]] = int(n_reads_b[bi])
+            row[D["n_mism"]] = m1 - m0
+            row[D["n_indel"]] = i1 - i0
+            row[D["n_multi"]] = u1 - u0
+            row[D["n_insb"]] = p1 - p0
+            row[D["n_corner"]] = int(tbl.corner[s0:s1].sum())
+            row[D["n_escb"]] = e1 - e0
+            row[D["n_tokens"]] = int(cst[bi + 1] - cst[bi])
+            row[D["cons_start"]] = cons_start
+            row[D["cons_span"]] = span
+
+            packed: dict[str, tuple[np.ndarray, int]] = {}
+            for kind, (g_name, a_name), (k0, k1) in (
+                ("map", ("mapg", "mapa"), (s0, s1)),
+                ("len", ("leng", "lena"), (0, 0) if fixed_len else (s0, s1)),
+                ("cnt", ("cntg", "cnta"), (s0, s1)),
+                ("mp", ("mpg", "mpa"), (m0, m1)),
+            ):
+                cls = guide_cls[kind][k0:k1]
+                gv = (np.uint64(1) << cls.astype(np.uint64)) - np.uint64(1)
+                packed[g_name] = pack_bits(gv, cls + 1)
+                packed[a_name] = pack_bits(gvals_u64[kind][k0:k1], guide_w[kind][cls])
+            packed["mbb"] = pack_bits(mbb_u64[m0:m1], mbb_w)
+            packed["idg"] = pack_bits(idg_u64[i0:i1], 2)
+            if opt_level >= 3:
+                packed["idl"] = pack_bits(idl_u64[u0:u1], 8)
+            else:
+                packed["idl"] = pack_bits(np.full(i1 - i0, 1, dtype=np.uint64), 8)
+            packed["ibs"] = pack_bits(ibs_u64[p0:p1], 2)
+            packed["rfl"] = pack_bits(rfl_u64[s0:s1], 3)
+            packed["esc"] = pack_bits(esc_u64[e0:e1], 3)
+            for s in STREAMS:
+                row[D[f"off_{s}"]] = bitpos[s]
+                w, nbits = packed[s]
+                words[s].append(w)
+                bitpos[s] += w.size * 32  # word-aligned blocks
+                block_bits[s] = max(block_bits[s], nbits)
+
+            caps.segs = max(caps.segs, s1 - s0)
+            caps.mism = max(caps.mism, m1 - m0)
+            caps.indel = max(caps.indel, i1 - i0)
+            caps.multi = max(caps.multi, u1 - u0)
+            caps.insb = max(caps.insb, p1 - p0)
+            caps.escb = max(caps.escb, e1 - e0)
+            caps.tokens = max(caps.tokens, int(cst[bi + 1] - cst[bi]))
+            caps.window = max(caps.window, (span + 15) & ~15)
+
+        streams = {
+            s: (np.concatenate(words[s]) if words[s] else np.zeros(0, dtype=np.uint32))
+            for s in STREAMS
+        }
+        meta = SageMeta(
+            version=1,
+            read_kind=rs.kind,
+            n_reads=len(rs.reads),
+            n_segments=S,
+            n_blocks=nb,
+            fixed_read_len=fixed_len,
+            cons_len=int(self.cons.size),
+            caps=caps,
+            classes=classes,
+            stream_bits={s: int(bitpos[s]) for s in STREAMS},
+        )
+        meta.stream_bits.update({f"blk_{s}": int(block_bits[s]) for s in STREAMS})
+        return SageFile(
+            meta=meta,
+            consensus2b=pack_2bit(self.cons),
+            directory=directory,
+            streams=streams,
+        )
+
+    def _decode_verify_failures(
+        self, sf: SageFile, expected: list[np.ndarray], device: torch.device
+    ) -> list[int]:
+        """Round-trip ``sf`` through the bucketed decoder on ``device`` (the
+        block-decode kernel on the card, its plain version on the CPU) and
+        return the file-order indices of reads that did not decode to their
+        original bases — the batch replacement for the per-read ``_verify``
+        walk. The decoded planes come to the host once."""
+        from repro_torch.core.decode_torch import decode_blocks_bucketed, prepare_device_blocks
+
+        nb = sf.meta.n_blocks
+        if nb == 0:
+            return []
+        db = prepare_device_blocks(sf).to(device)
+        out = decode_blocks_bucketed(db, np.arange(nb, dtype=np.int64))
+        toks, n_reads, starts, lens = (
+            out[k].cpu().numpy() for k in ("tokens", "n_reads", "read_start", "read_len")
+        )
+        bi, ri = np.nonzero(np.arange(starts.shape[1])[None, :] < n_reads[:, None])
+        assert bi.size == len(expected), "decoder read count != encoded read count"
+        st = starts[bi, ri].astype(np.int64)
+        ln = lens[bi, ri].astype(np.int64)
+        exp_ln = np.fromiter((r.size for r in expected), dtype=np.int64, count=len(expected))
+        fail = ln != exp_ln
+        cmp_ids = np.nonzero(~fail)[0]
+        if cmp_ids.size:
+            ln_c = exp_ln[cmp_ids]
+            flat = toks[
+                np.repeat(bi[cmp_ids], ln_c),
+                np.repeat(st[cmp_ids], ln_c) + ranges_from_counts(ln_c),
+            ].astype(np.int64)
+            exp_flat = (
+                np.concatenate([expected[i] for i in cmp_ids]).astype(np.int64)
+                if int(ln_c.sum()) else np.zeros(0, dtype=np.int64)
+            )
+            eq = np.concatenate([[0], np.cumsum(flat == exp_flat)])
+            ends = np.cumsum(ln_c)
+            fail[cmp_ids] |= (eq[ends] - eq[ends - ln_c]) != ln_c
+        return [int(i) for i in np.nonzero(fail)[0]]
+
+    def _encode_batched(self, rs: ReadSet, opt_level: int = 4) -> SageFile:
+        """Batched SAGe_Write: map in batch, pack columnar, verify by decode.
+        Escape demotion loops until the decode round-trip is clean, so the
+        final container is lossless by construction (and bit-identical to
+        the sequential reference, which demotes the same reads via its
+        per-read walk)."""
+        from repro_torch.core.decode_torch import resolve_device
+
+        device = resolve_device(self.device)
+        reads = rs.reads
+        t0 = time.perf_counter()
+        recs_list = self._map_all_batched(reads, device)
+        t1 = time.perf_counter()
+        escaped = {i for i, r in enumerate(recs_list) if r is None}
+        t_pack = t_verify = 0.0
+        rounds = 0
+        while True:
+            rounds += 1
+            if rounds > len(reads) + 2:
+                raise RuntimeError("encode verify loop failed to converge")
+            tp = time.perf_counter()
+            perm, per_read = self._ordered_records(reads, recs_list, escaped)
+            tbl = SegTable.from_records(per_read)
+            blk_read = self._blockize_table(tbl)
+            sf = self._pack_table(tbl, blk_read, opt_level, rs)
+            t_pack += time.perf_counter() - tp
+            if not self.verify or sf.meta.n_blocks == 0:
+                break
+            tv = time.perf_counter()
+            # opt levels < 3 pack mbb/idl in a layout the decoder does not
+            # read (the paper's ablation sizes only); verify the records
+            # through an opt-4 shadow container instead
+            sfv = sf if opt_level >= 3 else self._pack_table(tbl, blk_read, 4, rs)
+            fails = self._decode_verify_failures(sfv, [reads[p] for p in perm], device)
+            t_verify += time.perf_counter() - tv
+            if not fails:
+                break
+            escaped |= {int(perm[f]) for f in fails}
+        self.stats["n_escaped"] = len(escaped)
+        self.stats["verify_rounds"] = rounds
+        self.stats["t_map"] = t1 - t0
+        self.stats["t_pack"] = t_pack
+        self.stats["t_verify"] = t_verify
+        return sf
+
+
+@dataclasses.dataclass
+class SegTable:
+    """Columnar (struct-of-arrays) layout of every segment record — the
+    batched encoder's working set. One row per segment; mismatch-level
+    arrays are concatenated in segment order with per-segment counts, so
+    every downstream pass (blockize, tuning, pack) is a cumsum/slice."""
+
+    pos: np.ndarray  # (S,) int64 consensus position
+    length: np.ndarray  # (S,)
+    rev: np.ndarray  # (S,) bool
+    cont: np.ndarray  # (S,) bool
+    corner: np.ndarray  # (S,) bool
+    n_mism: np.ndarray  # (S,) mismatch records per segment
+    read_id: np.ndarray  # (S,) owning read (file order)
+    read_seg_start: np.ndarray  # (R+1,) segment bounds per read
+    mp: np.ndarray  # (M,) absolute read coordinate per mismatch
+    mbb: np.ndarray  # (M,) 2-bit rank/indel code
+    is_ind: np.ndarray  # (M,) bool: indel record
+    is_ins: np.ndarray  # (M,) bool: insertion record
+    ilen: np.ndarray  # (M,) indel block length (0 for substitutions)
+    ibases: np.ndarray  # (IB,) inserted bases, insertion order
+    esc: np.ndarray  # (E,) escaped corner-read bases
+    n_indel: np.ndarray  # (S,) derived per-segment counts
+    n_multi: np.ndarray
+    n_insb: np.ndarray
+    n_escb: np.ndarray
+    del_total: np.ndarray
+
+    def window_bounds(self) -> tuple[np.ndarray, np.ndarray]:
+        """Per-segment consensus window extent with corner sentinels
+        (min-pos candidates, max-end candidates) — the single definition
+        block layout AND the directory's cons_start/cons_span both use."""
+        pos_nc = np.where(self.corner, _SENT, self.pos)
+        end_nc = np.where(self.corner, 0, self.pos + self.length + self.del_total)
+        return pos_nc, end_nc
+
+    @classmethod
+    def from_records(cls, per_read: list[list[SegRecord]]) -> "SegTable":
+        pos, length, rev, cont, corner, nm, rid = [], [], [], [], [], [], []
+        mp_p, mbb_p, kind_p, ilen_p, ib_p, esc_p = [], [], [], [], [], []
+        seg_counts = []
+        for r, recs in enumerate(per_read):
+            seg_counts.append(len(recs))
+            for rec in recs:
+                pos.append(rec.pos)
+                length.append(rec.length)
+                rev.append(rec.rev)
+                cont.append(rec.cont)
+                corner.append(rec.corner)
+                rid.append(r)
+                if rec.corner:
+                    nm.append(0)
+                    assert rec.esc is not None
+                    esc_p.append(np.asarray(rec.esc, dtype=np.uint8))
+                    continue
+                nm.append(len(rec.mp))
+                if rec.mp:
+                    mp_p.append(np.asarray(rec.mp, dtype=np.int64))
+                    mbb_p.append(np.asarray(rec.mbb, dtype=np.int64))
+                    k = np.frombuffer("".join(rec.kinds).encode(), dtype=np.uint8)
+                    kind_p.append(k)
+                    il = np.zeros(k.size, dtype=np.int64)
+                    if rec.ilen:
+                        il[k != ord("S")] = rec.ilen
+                    ilen_p.append(il)
+                    ib_p.extend(rec.ibases)
+
+        def cat(parts, dtype):
+            return (
+                np.concatenate(parts).astype(dtype)
+                if parts else np.zeros(0, dtype=dtype)
+            )
+
+        kind = cat(kind_p, np.uint8)
+        is_ind = kind != ord("S")
+        is_ins = kind == ord("I")
+        ilen = cat(ilen_p, np.int64)
+        n_mism = np.asarray(nm, dtype=np.int64)
+        m_end = np.cumsum(n_mism)
+        m_start = m_end - n_mism
+
+        def seg_sum(per_m: np.ndarray) -> np.ndarray:
+            c = np.concatenate([[0], np.cumsum(per_m)])
+            return c[m_end] - c[m_start]
+
+        length_a = np.asarray(length, dtype=np.int64)
+        corner_a = np.asarray(corner, dtype=bool)
+        return cls(
+            pos=np.asarray(pos, dtype=np.int64),
+            length=length_a,
+            rev=np.asarray(rev, dtype=bool),
+            cont=np.asarray(cont, dtype=bool),
+            corner=corner_a,
+            n_mism=n_mism,
+            read_id=np.asarray(rid, dtype=np.int64),
+            read_seg_start=np.concatenate([[0], np.cumsum(seg_counts)]).astype(np.int64),
+            mp=cat(mp_p, np.int64),
+            mbb=cat(mbb_p, np.int64),
+            is_ind=is_ind,
+            is_ins=is_ins,
+            ilen=ilen,
+            ibases=cat(ib_p, np.int64),
+            esc=cat(esc_p, np.int64),
+            n_indel=seg_sum(is_ind.astype(np.int64)),
+            n_multi=seg_sum((is_ind & (ilen > 1)).astype(np.int64)),
+            n_insb=seg_sum(np.where(is_ins, ilen, 0)),
+            n_escb=length_a * corner_a,
+            del_total=seg_sum(np.where(is_ind & ~is_ins, ilen, 0)),
         )
 
 

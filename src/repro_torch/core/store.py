@@ -205,7 +205,7 @@ class SageStore:
         read_set,
         consensus: np.ndarray,
         token_target: int = 65536,
-        batched: bool = False,
+        batched: bool = True,
         verify: bool = True,
         layout: str = "memory",
         path: Union[str, Path, None] = None,
@@ -215,8 +215,13 @@ class SageStore:
         """SAGe_Write: compress ``read_set`` against ``consensus`` and register
         the result under ``name``.
 
-        The sequential encoder runs (``batched=True`` is not ported yet and
-        raises). Encoder statistics land in ``self.last_write_stats``.
+        ``batched`` (default) selects the vectorized ingest pipeline
+        (batched seeding, the banded-DP kernel, columnar stream packing) and
+        ``verify`` its decode-round-trip losslessness check (the block-decode
+        kernel), both on the store's device; ``batched=False`` runs the
+        sequential reference encoder on the host (the same SageFile, much
+        slower). Encoder statistics and phase timings land in
+        ``self.last_write_stats``.
 
         ``layout`` picks the registered form: ``"memory"`` (default)
         registers the in-memory SageFile; ``"v1"`` saves the monolithic
@@ -229,7 +234,7 @@ class SageStore:
             raise ValueError(f"store.write(layout={layout!r}) needs path=")
         enc = SageEncoder(
             consensus, token_target=token_target, batched=batched,
-            verify=verify, **enc_kwargs,
+            verify=verify, device=self.device, **enc_kwargs,
         )
         sf = enc.encode(read_set)
         self.last_write_stats = dict(enc.stats)

@@ -388,10 +388,11 @@ def map_store_reads(
         from repro_torch.core.bitio import ranges_from_counts  # genomics must not import core at module scope
 
         d = sb.data
-        toks = np.asarray(d["tokens"])
-        n_reads = np.asarray(d["n_reads"])
-        starts, lens = np.asarray(d["read_start"]), np.asarray(d["read_len"])
-        poss, revs = np.asarray(d["read_pos"]), np.asarray(d["read_rev"])
+        # one host copy of each decoded plane (they lie on the store's device)
+        toks, n_reads, starts, lens, poss, revs = (
+            d[k].cpu().numpy()
+            for k in ("tokens", "n_reads", "read_start", "read_len", "read_pos", "read_rev")
+        )
         # ---- batched token extraction: one gather for every read's bases ----
         # (block-major read order, identical to the former nested loops)
         nmax = starts.shape[1]

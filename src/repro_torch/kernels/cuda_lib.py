@@ -35,6 +35,7 @@ SOURCES = {
     "sage_decode": "sage_decode.cu",
     "reformat": "reformat.cu",
     "ssd_chunk": "ssd_chunk.cu",
+    "banded_align": "banded_align.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,7 +1,8 @@
 """The port's kernels as ops: each routes by the device of its inputs —
 the hand-written CUDA kernel for CUDA tensors, the plain torch version
 (kernels/ref.py) for CPU tensors. There is no switch: the device decides.
-``ssd`` wraps the SSD intra-chunk kernel with the recurrence across chunks.
+``ssd`` wraps the SSD intra-chunk kernel with the recurrence across chunks;
+``banded_align`` is the SAGe_Write mapper's batched DP.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.decode_torch import DeviceBlocks
 from repro_torch.kernels import reformat
+from repro_torch.kernels.banded_align import align_scan
 from repro_torch.kernels.sage_decode import sage_decode_arrays, sage_fused_decode, sage_unpack
 from repro_torch.kernels.ssd_chunk import ssd_intra
 
@@ -41,6 +43,12 @@ def kmer_tokens(tokens: torch.Tensor, k: int, n_tokens=None) -> torch.Tensor:
 
 def one_hot(tokens: torch.Tensor) -> torch.Tensor:
     return reformat.one_hot(tokens)
+
+
+def banded_align(reads, wins, off0, wlen, *, band: int):
+    """Banded edit-distance DP of a batch of same-length reads -> (moves
+    (B, L, 2*band+1) uint8, last row (B, 2*band+1) int32)."""
+    return align_scan(reads, wins, off0, wlen, band=band)
 
 
 def ssd(x, dt, A, B_, C_, chunk: int, state0=None):

@@ -8,6 +8,7 @@ one_hot     -> reformat.one_hot_plain
 sage_fused  -> sage_decode.fused_decode_plain (gather, decode, format)
 ssd_chunk   -> models.ssm.ssd_chunked (the model's own reference path);
                the intra-chunk block alone: ssd_chunk.ssd_intra_plain
+banded_align -> banded_align.align_scan_plain
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.decode_torch import DeviceBlocks, decode_block_arrays
+from repro_torch.kernels.banded_align import align_scan_plain
 from repro_torch.kernels.reformat import kmer_pack_plain, one_hot_plain
 from repro_torch.kernels.sage_decode import fused_decode_plain, unpack_rows_plain
 from repro_torch.models.ssm import ssd_chunked
@@ -44,3 +46,7 @@ def one_hot_ref(tokens: torch.Tensor) -> torch.Tensor:
 def ssd_ref(x, dt, A, B_, C_, chunk: int, state0=None):
     """x: (B,S,H,P) etc. The model-layer SSD reference."""
     return ssd_chunked(x, dt, A, B_, C_, chunk, state0)
+
+
+def banded_align_ref(reads, wins, off0, wlen, *, band: int):
+    return align_scan_plain(reads, wins, off0, wlen, band=band)

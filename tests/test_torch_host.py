@@ -106,14 +106,28 @@ def test_sequential_encoder_writes_reference_sage_file(name):
     rs = sample_read_set(ref, kw.pop("profile"), **kw)
     theirs = ref_encoder.SageEncoder(ref, token_target=4096, batched=False).encode(rs)
     pt_rs = ReadSet(reads=rs.reads, quals=rs.quals, kind=rs.kind, profile=rs.profile)
-    ours = PtEncoder(ref, token_target=4096).encode(pt_rs)
+    ours = PtEncoder(ref, token_target=4096, batched=False).encode(pt_rs)
     assert isinstance(ours, SageFile)
     assert_same_file(ours, theirs)
 
 
-def test_batched_encoder_not_ported():
-    with pytest.raises(NotImplementedError, match="batched"):
-        PtEncoder(np.zeros(64, np.uint8), batched=True)
+def test_batched_encoder_not_ported(monkeypatch):
+    """The batched encoder is ported (tests/test_torch_encode.py); it is the
+    default, runs on the card, and without one raises unless told the CPU:
+    it never falls back to the sequential path."""
+    import torch
+
+    ref = make_reference(4000, seed=1)
+    rs = sample_read_set(ref, "illumina", depth=1, seed=2)
+    pt_rs = ReadSet(reads=rs.reads, quals=rs.quals, kind=rs.kind, profile=rs.profile)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    enc = PtEncoder(ref, token_target=4096)
+    assert enc.batched
+    with pytest.raises(RuntimeError, match="cuda"):
+        enc.encode(pt_rs)
+    assert "n_batch_mapped" not in enc.stats
+    ours = PtEncoder(ref, token_target=4096, device="cpu").encode(pt_rs)
+    assert_same_file(ours, ref_encoder.SageEncoder(ref, token_target=4096).encode(rs))
 
 
 def test_state_conversion_round_trip(illumina_encoded):

@@ -8,7 +8,10 @@ where JAX is not installed; on a machine with an NVIDIA GPU:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_kernels.py
 
-The kernels are built from src/repro_torch/kernels/csrc at first use."""
+The kernels are built from src/repro_torch/kernels/csrc at first use. The
+banded-alignment DP's cases alone:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_kernels.py -k align"""
 
 import dataclasses
 import functools
@@ -25,6 +28,9 @@ from repro_torch.core.layout import SageContainerV2, write_v2
 from repro_torch.genomics.synth import make_reference, sample_read_set
 from repro_torch.kernels import cuda_lib, ops, ref
 from repro_torch.kernels import sage_decode as SD
+from repro_torch.kernels.banded_align import align_plan, align_rows, align_scan
+
+from dp_cases import CARD_DP_CASES, dp_case, scan_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -570,3 +576,69 @@ def test_ssd_on_card_matches_cpu(cuda):
     assert DT.trace_counts() == {"launch:ssd_intra": 1}
     for a, b in zip(got, want):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------- banded-alignment DP
+@pytest.mark.parametrize("case", sorted(CARD_DP_CASES))
+def test_align_scan_kernel_matches_plain(cuda, case):
+    """The DP kernel bit for bit against its plain version on the card, on
+    every cell of moves and the last row (padded lanes included): widths
+    49, 289 and 641, a read shorter than the width, windows clipped at both
+    consensus ends, code 4 in reads and consensus."""
+    arrs, band = scan_inputs(case)
+    t = [torch.from_numpy(a).to(cuda) for a in arrs]
+    DT.reset_trace_counts()
+    mv, last = ops.banded_align(*t, band=band)
+    assert DT.trace_counts() == {"launch:align_scan": 1}
+    want_mv, want_last = ref.banded_align_ref(*t, band=band)
+    torch.cuda.synchronize()
+    assert mv.shape == want_mv.shape and last.shape == want_last.shape
+    assert torch.equal(mv, want_mv) and torch.equal(last, want_last)
+
+
+def test_align_rows_on_card_matches_cpu(cuda):
+    """The host wrapper on the card against the CPU: two chunks of lanes
+    (one full 1024-lane bucket and a padded tail)."""
+    rows, cons, cand, band = dp_case("l150_b24")
+    rows, cand = np.tile(rows, (20, 1)), np.tile(cand, 20)  # 1280 lanes
+    DT.reset_trace_counts()
+    got = align_rows(rows, cons, cand, band, device=cuda)
+    assert DT.trace_counts() == {"launch:align_scan": 2}
+    want = align_rows(rows, cons, cand, band, device="cpu")
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def test_align_scan_kernel_plans_a_warp_per_lane(cuda):
+    plan = align_plan(1024, 24, 198)
+    assert plan["grid"] * plan["lanes_per_cta"] == 1024 and plan["threads"] == 32 * plan["lanes_per_cta"]
+    assert plan["cells_per_thread"] == 2
+    assert align_plan(64, 320, 3640)["cells_per_thread"] == 24
+
+
+def test_align_scan_kernel_refuses_what_it_cannot_take(cuda):
+    arrs, band = scan_inputs("bucket5")
+    t = [torch.from_numpy(a).to(cuda) for a in arrs]
+    with pytest.raises(ValueError, match="int32"):
+        align_scan(t[0].long(), *t[1:], band=band)
+    with pytest.raises(ValueError, match="does not take"):
+        align_scan(*t, band=600)  # width 1201 > 1024
+    with pytest.raises(ValueError, match="CPU or all on CUDA"):
+        align_scan(t[0].cpu(), *t[1:], band=band)
+
+
+@pytest.mark.parametrize("profile", sorted(PROFILES))
+def test_batched_encoder_on_card_writes_the_sequential_file(cuda, profile):
+    """SAGe_Write's batched path on the card (DP kernel, B2 verify) writes
+    the sequential encoder's SageFile."""
+    ref_seq = make_reference(30_000, seed=3)
+    kw, token_target = PROFILES[profile]
+    rs = sample_read_set(ref_seq, profile, **kw)
+    DT.reset_trace_counts()
+    sf = SageEncoder(ref_seq, token_target=token_target, device=cuda).encode(rs)
+    counts = DT.trace_counts()
+    assert counts.get("launch:sage_decode", 0) > 0 and not any(k.startswith("plain:") for k in counts)
+    if profile == "illumina":
+        assert counts.get("launch:align_scan", 0) > 0
+    assert sf.diff(SageEncoder(ref_seq, token_target=token_target, batched=False).encode(rs)) == []

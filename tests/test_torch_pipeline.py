@@ -211,7 +211,7 @@ def test_pipeline_refuses_to_clobber_shared_store_dataset(sagefiles):
     store = SageStore(device="cpu")
     store.register("train", sagefiles[1])
     other_ref = make_reference(10_000, seed=9)
-    other = SageEncoder(other_ref, token_target=2048).encode(
+    other = SageEncoder(other_ref, token_target=2048, device="cpu").encode(
         sample_read_set(other_ref, "illumina", depth=1, seed=10)
     )
     with pytest.raises(ValueError, match="already registered"):

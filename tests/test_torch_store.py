@@ -18,7 +18,7 @@ from repro_torch.core.decode_torch import reset_trace_counts, trace_counts
 from repro_torch.core.errors import IntegrityError
 from repro_torch.data import SageTokenPipeline
 
-from torch_cases import assert_same, encoded_case
+from torch_cases import assert_same, encoded_case, reference
 
 GROUP = 4
 FMTS = [("2bit", None), ("kmer", 4), ("onehot", None)]
@@ -159,14 +159,18 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
 
 def test_unported_options_raise_with_roadmap_item(codec_path):
-    ours, _ = stores(codec_path)
+    ours, theirs = stores(codec_path)
     with pytest.raises(NotImplementedError, match="ROADMAP.*slice 7"):
         SageTokenPipeline("ds", vocab_size=259, batch=1, seq_len=8, store=ours, mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP.*slice 7"):
         SageStore(device="cpu", shards=2)
     with pytest.raises(NotImplementedError, match="ROADMAP.*slice 7"):
         ours.session(mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 3"):
-        ours.write("x", None, np.zeros(64, np.uint8), batched=True)
+    # slice 3 (batched SAGe_Write) is ported: the CPU store writes repro's SageFile
+    rs, _ = encoded_case("illumina")
+    cons = reference()
+    sf = ours.write("x", rs, cons, token_target=4096, batched=True)
+    assert sf.diff(theirs.write("x", rs, cons, token_target=4096, batched=True)) == []
+    assert ours.last_write_stats["n_batch_mapped"] > 0
     with pytest.raises(NotImplementedError, match="ROADMAP.*slice 4"):
         ours.repair("ds")
