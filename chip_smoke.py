@@ -1,8 +1,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: SAGe_Write (batched),
 SAGe_Read, SAGe_ISP (streams, the exact-match filter, the store-backed
-mapper), the LM token pipeline and mamba2-370m serving store-derived
-prompts, through the hand-written CUDA kernels, checked against the
-sequential numpy encoder and decoder, the plain torch versions and the CPU.
+mapper), the LM token pipeline, mamba2-370m serving store-derived prompts,
+the multi-tenant SageServer frontend and the self-healing store (parity
+reconstruction, scrub, repair), through the hand-written CUDA kernels,
+checked against the sequential numpy encoder and decoder, the plain torch
+versions and the CPU.
 
     python3 chip_smoke.py
 
@@ -68,6 +70,25 @@ Phases, each printing one JSON line:
            prefill logits against the CPU; chunked prefill against
            step-by-step decode on that cut; time to first token, decode
            ms per step, peak memory, profiles of a prefill and 8 decode steps
+  serve    SageServer over a card store and the lm phase's engine: one burst
+           of 64 overlapping 4-block reads (2bit / kmer / onehot), 4 kmer
+           streams of 256 blocks, 2 consensus requests and 8 generates
+           (512-token prompts, 64 new tokens), drained synchronously; every
+           chunk against a direct two-step read and refdec, consensus
+           against the store, generates against a direct engine.generate;
+           launch counts from 0 (B1-B4, B6, no plain call); batcher stats;
+           the 64 reads on warm groups one at a time through session.read
+           against the same through the server (ms a request, launches a
+           request); a profiled warm server round; a background-thread
+           server whose every handle is waited on with a timeout
+  heal     an xor parity container (groups of 4) of 1024 full-width blocks:
+           damage in two parity groups read back through reconstruction
+           (two-step and fused, against refdec, timed against a clean
+           read); reads under an EIO-every-5 / one-flip plan through the
+           server; a scrubber sweep that repairs the medium, an unlimited
+           and a half-rate sweep, one timed group repair; then two damaged
+           extents in one parity group fail only the requests touching
+           them (repair attempted once, group quarantined)
 Then the kernel table as one JSON line (B1's, B2's, B3's and B5's rows
 with their launch `plan`, B1's and B3's with the launch floor), the card's
 name and power limit,
@@ -94,7 +115,7 @@ try:
     import torch
 
     from repro_torch.configs import get_arch
-    from repro_torch.core import SageStore
+    from repro_torch.core import SageStore, Scrubber
     from repro_torch.core.api import kmer_vocab_size, pick_k
     from repro_torch.core.bitio import unpack_2bit
     from repro_torch.core.blocks import block_row_widths, localize_directory, pad_block_ids
@@ -108,7 +129,9 @@ try:
         trace_counts,
     )
     from repro_torch.core.encoder import SageEncoder
+    from repro_torch.core.errors import IntegrityError
     from repro_torch.core.format import D, STREAMS, SageFile
+    from repro_torch.core import layout
     from repro_torch.core.layout import SageContainerV2, write_v2
     from repro_torch.core.refdec import decode_all, decode_block
     from repro_torch.data import SageTokenPipeline
@@ -122,7 +145,8 @@ try:
     from repro_torch.kernels.sage_decode import launch_plan, unpack_plan
     from repro_torch.kernels.ssd_chunk import ssd_intra, ssd_intra_plain
     from repro_torch.models import lm
-    from repro_torch.serving import ServeConfig, ServingEngine, prompts_from_store
+    from repro_torch.serving import SageServer, ServeConfig, ServingEngine, SessionPool, prompts_from_store
+    from repro_torch.testing import FaultPlan, corrupt_extents, inject
 
     sys.path.insert(0, str(ROOT / "tests"))
     from dp_cases import CARD_DP_CASES, scan_inputs  # the DP's card test cases (numpy + the port)
@@ -163,6 +187,17 @@ ENCODE = dict(ref_len=1_000_000, ref_seed=31, depth=5, seed=32, token_target=655
 DP_LANES = 1024  # the kernels phase's DP chunk: one full lane bucket (MAX_CHUNK_LANES)
 DP_OPS_PER_CELL = 20  # int32 operations a DP cell a row (diag, up, masks, prefix-min, left)
 ISP_BLOCKS = (0, 8)  # the isp phase's block range of the Illumina container
+# the serve phase: one burst through SageServer on blocks no earlier phase
+# touched: 64 reads of 4 blocks (request i covers [start + 2i, start + 2i + 4)),
+# 4 kmer streams of 256 blocks, 2 consensus requests, 8 generates
+SERVE = dict(start=20480, reads=64, read_blocks=4, streams=4, stream_blocks=256, per_fetch=32,
+             consensus=((0, 8), (64, 72)), generates=8, gen_start=22016,
+             bg_reads=16, profile_reads=16)
+# the heal phase: an xor parity container (parity groups of 4) of the first
+# 128 tiles (1024 blocks); damage within the budget in two parity groups,
+# an in-flight EIO / flip plan, then two damaged extents in one parity group
+HEAL = dict(tiles=128, parity_group=4, damaged=(5, 100), flip_block=300, repair_block=700,
+            beyond=(200, 201))
 WORK = ROOT / "build" / "smoke_data"
 
 
@@ -382,14 +417,19 @@ class Oracle:
         return np.concatenate(parts)
 
     def check(self, out: dict, block_ids: np.ndarray, what: str) -> int:
-        toks = out["tokens"].cpu().numpy()
-        st, ln = out["read_start"].cpu().numpy(), out["read_len"].cpu().numpy()
-        nr = out["n_reads"].cpu().numpy()
+        """``out``: a session read (tensors) or a served chunk (host arrays)."""
+        toks = host(out["tokens"])
+        st, ln = host(out["read_start"]), host(out["read_len"])
+        nr = host(out["n_reads"])
         for i, b in enumerate(np.asarray(block_ids)):
             got = read_multiset(toks[i], st[i], ln[i], int(nr[i]))
             if got != self.want[source_block(b, self.n_src)]:
                 raise AssertionError(f"{what}: block {int(b)} disagrees with refdec")
         return int(len(block_ids))
+
+
+def host(v) -> np.ndarray:
+    return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -602,7 +642,7 @@ def state_err(a: dict, b: dict) -> float:
     return max(max_abs_err(a[k].cpu(), b[k].cpu()) for k in a)
 
 
-def lm_phase(dev, cfg) -> int:
+def lm_phase(dev, cfg) -> tuple[int, ServingEngine]:
     """The LM serving path on the card: 8 prompts from the Illumina container
     through a fused kmer session of a store of its own, then two greedy
     ``ServingEngine.generate`` calls over mamba2-370m at full width with
@@ -612,7 +652,8 @@ def lm_phase(dev, cfg) -> int:
     (f32 and bf16 prefill logits of 8 x 512 tokens) and the duality of
     chunked prefill and step-by-step decode on that cut; times prefill and
     decode and profiles one prefill and a few decode steps. Returns B6's
-    launches on the path."""
+    launches on the path, and the engine over the full-width model (the
+    serve phase serves it)."""
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
     model = lm.init_params(torch.Generator(device=dev).manual_seed(LM["seed"]), cfg, device=dev)
@@ -692,7 +733,7 @@ def lm_phase(dev, cfg) -> int:
 
     prof = {"prefill": profile_window(lambda _i: lm.prefill(model, cfg, toks), focus="ssd_intra"),
             f"decode_{LM['profile_steps']}_steps": profile_window(decode_window, focus="ssd_intra")}
-    del model, engine, cache, logits, lg
+    del model, cache, logits, lg
     torch.cuda.empty_cache()
 
     # (b) the card (B6) against the CPU (plain) on a 4-layer cut, same weights
@@ -745,7 +786,294 @@ def lm_phase(dev, cfg) -> int:
          peak_device_bytes=peak, ttft_ms=ttft, decode_ms_per_step=dec_s / steps * 1e3,
          decode_tokens_per_s=LM["prompts"] * steps / dec_s, first_tokens=out[:, :8].tolist(),
          card_vs_cpu=vs_cpu, duality=duality, profile=prof, seconds=time.perf_counter() - t_phase)
-    return path["ssd_intra"]
+    return path["ssd_intra"], engine
+
+
+def served_equal(data: dict, direct: dict, what: str) -> None:
+    """A served chunk's host arrays equal a direct session read's tensors,
+    key for key, dtype and bits (numpy, or a host bf16 tensor for onehot)."""
+    assert sorted(data) == sorted(k for k in direct if k != "block_ids"), what
+    for k, v in data.items():
+        got = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
+        want = direct[k].cpu()
+        assert got.dtype == want.dtype and torch.equal(got, want), f"{what}: {k} differs from a direct read"
+
+
+def launches_per_request(before: dict, after: dict, n: int) -> dict:
+    return {k: (v - before.get(k, 0)) / n for k, v in after.items() if v != before.get(k, 0)}
+
+
+def serve_phase(cfg, engine: ServingEngine, oracle: "Oracle") -> dict:
+    """The serving frontend on the card: one burst through SageServer over a
+    SessionPool of a card store (two-step session, as the batcher runs it)
+    and the lm phase's full-width mamba2-370m. Every served read and stream
+    chunk against a direct session read and refdec, consensus against
+    ``store.consensus_windows``, generates against a direct
+    ``engine.generate`` of the same prompts at the same batch; launch counts
+    from 0; an A/B of the 64 reads on warm groups, one at a time through
+    ``session.read`` against the same through the server; a profiled warm
+    server round; a background-thread server with timeouts on every handle."""
+    sv = SERVE
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated()  # the model and earlier phases' live tensors
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    store = SageStore(max_prepared=64, group_blocks=GROUP)
+    pool = SessionPool(store=store)
+    pool.register("illumina", str(WORK / "illumina.sage2"))
+    srv = SageServer(pool, engine=engine, max_waiting=128)
+    sess = pool.session()
+    S, n_rb, k = sv["start"], sv["read_blocks"], pick_k(cfg.vocab)
+    reads = [((S + 2 * i, S + 2 * i + n_rb), FMTS[i % 3]) for i in range(sv["reads"])]
+    stream_los = [S + sv["stream_blocks"] * (j + 1) for j in range(sv["streams"])]
+    gen_blocks = [sv["gen_start"] + GROUP * j for j in range(sv["generates"])]
+    cons_ranges = [(S + a, S + b) for a, b in sv["consensus"]]
+
+    # ---- the burst: counts from 0, submitted at once, drained synchronously
+    reset_trace_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h_reads = [srv.read("illumina", r, f, kmer_k=KMER_K) for r, f in reads]
+    h_streams = [srv.stream("illumina", (lo, lo + sv["stream_blocks"]), fmt="kmer", kmer_k=KMER_K,
+                            blocks_per_fetch=sv["per_fetch"]) for lo in stream_los]
+    h_cons = [srv.consensus("illumina", r) for r in cons_ranges]
+    # distinct priorities ahead of everything else: one generate batch, in this order
+    h_gens = [srv.generate(dataset="illumina", block_range=(b, b + 1), max_prompt=engine.sc.max_prompt,
+                           kmer_k=k, priority=j - sv["generates"]) for j, b in enumerate(gen_blocks)]
+    delivered = srv.run_until_idle()
+    torch.cuda.synchronize()
+    burst_s = time.perf_counter() - t0
+    counts = trace_counts()
+    stats = dict(srv.batcher.stats)
+    plain = {kk: v for kk, v in counts.items() if kk.startswith("plain:")}
+    assert not plain, f"the serve path ran plain versions on the card: {plain}"
+    path = {kk: counts.get(f"launch:{kk}", 0)
+            for kk in ("sage_unpack", "sage_decode", "kmer_pack", "one_hot", "ssd_intra")}
+    idle = [kk for kk, n in path.items() if n == 0]
+    assert not idle, f"the serve path never launched: {idle}"
+    assert stats["generate_batches"] == 1 and stats["isolated_failures"] == 0, stats
+
+    # ---- checks: direct two-step reads, refdec, consensus, the engine
+    checked = 0
+    for h, (r, f) in zip(h_reads, reads):
+        out = h.result(timeout=60)
+        assert out is not None, f"read {r} {f} aborted"
+        ids = np.arange(*r)
+        assert np.array_equal(out["block_ids"], ids), r
+        served_equal(out["data"], sess.read("illumina", r, f, kmer_k=KMER_K), f"read {r} {f}")
+        checked += oracle.check(out["data"], ids, f"served read {f}")
+    for h, lo in zip(h_streams, stream_los):
+        chunks = list(h.chunks(timeout=60))
+        assert [c["fetch"] for c in chunks] == list(range(sv["stream_blocks"] // sv["per_fetch"])), lo
+        assert np.array_equal(np.concatenate([c["block_ids"] for c in chunks]),
+                              np.arange(lo, lo + sv["stream_blocks"])), lo
+        for c in chunks:
+            served_equal(c["data"], sess.read("illumina", c["block_ids"], "kmer", kmer_k=KMER_K), "stream")
+            checked += oracle.check(c["data"], c["block_ids"], "served stream")
+    for h, r in zip(h_cons, cons_ranges):
+        out = h.result(timeout=60)
+        wins, starts = store.consensus_windows("illumina", np.arange(*r))
+        assert np.array_equal(out["windows"], wins) and np.array_equal(out["starts"], starts), r
+    served_tokens = np.stack([h.result(timeout=60)["tokens"] for h in h_gens])
+    prompts = [prompts_from_store(sess, "illumina", vocab=cfg.vocab, n_prompts=1,
+                                  max_prompt=engine.sc.max_prompt, kmer_k=k, block_range=(b, b + 1))[0]
+               for b in gen_blocks]
+    direct_tokens = np.stack(engine.generate(prompts))
+    assert np.array_equal(served_tokens, direct_tokens), "served generate != direct engine.generate"
+
+    # ---- A/B on warm groups: one at a time through session.read vs the server
+    def one_at_a_time(reqs):
+        for r, f in reqs:
+            out = sess.read("illumina", r, f, kmer_k=KMER_K)
+            _host = {kk: v.cpu() for kk, v in out.items() if isinstance(v, torch.Tensor)}
+
+    def through_server(reqs):
+        hs = [srv.read("illumina", r, f, kmer_k=KMER_K) for r, f in reqs]
+        srv.run_until_idle()
+        assert all(h.result(timeout=60) is not None for h in hs)
+
+    ab = {"one_at_a_time": [], "server": []}
+    ab_counts = {}
+    for name in ("one_at_a_time", "server", "server", "one_at_a_time"):
+        fn = one_at_a_time if name == "one_at_a_time" else through_server
+        before = trace_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(reads)
+        torch.cuda.synchronize()
+        ab[name].append((time.perf_counter() - t0) * 1e3 / len(reads))
+        ab_counts[name] = launches_per_request(before, trace_counts(), len(reads))
+    few = reads[: sv["profile_reads"]]
+    prof = {"warm_server_round": profile_window(lambda _i: through_server(few)),
+            "warm_one_at_a_time": profile_window(lambda _i: one_at_a_time(few))}
+
+    # ---- a background-thread server: every handle waited on with a timeout
+    bg_reads = reads[: sv["bg_reads"]]
+    with SageServer(pool) as bg:
+        hs = [bg.read("illumina", r, f, kmer_k=KMER_K) for r, f in bg_reads]
+        outs = [h.result(timeout=120) for h in hs]
+    for out, (r, f) in zip(outs, bg_reads):
+        assert out is not None, f"background read {r} {f} aborted"
+        served_equal(out["data"], sess.read("illumina", r, f, kmer_k=KMER_K), f"background read {r} {f}")
+    srv.stop()
+    peak = torch.cuda.max_memory_allocated()
+    emit("serve", requests={"reads": len(reads), "read_blocks": n_rb, "streams": len(stream_los),
+                            "stream_blocks": sv["stream_blocks"], "blocks_per_fetch": sv["per_fetch"],
+                            "consensus": len(h_cons), "generates": len(h_gens)},
+         burst_seconds=burst_s, chunks_delivered=delivered,
+         batcher={kk: stats[kk] for kk in ("rounds", "fused_reads", "fused_read_requests", "fused_blocks",
+                                           "consensus_calls", "generate_batches", "deferred",
+                                           "isp_prefetched_groups", "isp_prefetch_errors")},
+         launches=path, plain_calls=plain, blocks_checked_against_refdec=checked,
+         generate={"prompts": len(prompts), "prompt_kmers": [int(p.size) for p in prompts],
+                   "max_new": engine.sc.max_new, "equal_to_direct_engine": True},
+         warm_ms_per_read_request=ab, launches_per_read_request=ab_counts,
+         background={"reads": len(bg_reads), "ok": True}, profile=prof,
+         held_device_bytes=held, peak_device_bytes=peak, seconds=time.perf_counter() - t_phase)
+    return path
+
+
+def heal_phase(src: SageFile, oracle: "Oracle") -> dict:
+    """The self-healing store on the card: an xor parity container of
+    full-width Illumina blocks; damage in two parity groups read back
+    (two-step and fused) through reconstruction; reads under an in-flight
+    EIO / flip plan through the server; a scrubber sweep that repairs the
+    medium, an unlimited and a rate-limited sweep, one timed group repair;
+    then damage beyond the budget, which fails only the requests that
+    touch it. Launch counts from 0."""
+    hl = HEAL
+    t_phase = time.perf_counter()
+    path = WORK / "heal.sage2"
+    t0 = time.perf_counter()
+    st = write_v2(tile_sage_file(src, hl["tiles"]), path, parity="xor", parity_group=hl["parity_group"])
+    write_s = time.perf_counter() - t0
+    assert st["dedup_blocks"] == 0 and st["parity"] == "xor", st
+    reset_trace_counts()
+
+    # (1) damage within the budget: reconstruction in flight
+    corrupt_extents(path, hl["damaged"], byte=7, bit=5)
+    store = SageStore(max_prepared=64, group_blocks=GROUP)
+    store.register("heal", str(path))
+    sess, sess_f = store.session(), store.session(fused=True)
+    # untimed: the header open, the codec dictionaries' upload and the first
+    # group's pinned staging, so the two timed cold reads differ only in
+    # the reconstruction
+    warm = sess.read("heal", (2 * GROUP, 3 * GROUP), "kmer", kmer_k=KMER_K)
+    oracle.check(warm, warm["block_ids"], "heal warm-up read")
+    timed = {}
+    for name, gi in (("reconstructed", hl["damaged"][0] // GROUP), ("clean", hl["damaged"][0] // GROUP + 1)):
+        rng = (gi * GROUP, (gi + 1) * GROUP)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sess.read("heal", rng, "kmer", kmer_k=KMER_K)
+        torch.cuda.synchronize()
+        timed[name] = (time.perf_counter() - t0) * 1e3
+        oracle.check(out, out["block_ids"], f"heal {name} read")
+    g1 = hl["damaged"][1] // GROUP
+    for fmt in FMTS:  # the other damaged group through a fused session (B5)
+        out = sess_f.read("heal", (g1 * GROUP, (g1 + 1) * GROUP), fmt, kmer_k=KMER_K)
+        oracle.check(out, out["block_ids"], f"heal fused {fmt}")
+    recon = store.io_stats["reconstructions"]
+    assert recon >= len(hl["damaged"]) and store.health("heal")["ok"], store.io_stats
+
+    # (2) in-flight faults through the server: EIO every 5th read, one flip
+    flips = SageStore(max_prepared=64, group_blocks=GROUP)
+    flips.register("heal", str(path))
+    flips.meta("heal")
+    fsrv = SageServer(SessionPool(store=flips))
+    fb = hl["flip_block"]
+    off = int(SageContainerV2.open(path).extents[fb, 0]) + 3
+    lo = fb - fb % GROUP
+    freqs = [((lo + 8 * i, lo + 8 * i + 8), FMTS[i % 3]) for i in range(8)]  # two store groups
+    with inject(FaultPlan(eio_every=5, flip_offsets={off: 0x01}, flip_times=1)) as plan:
+        hs = [fsrv.read("heal", r, f, kmer_k=KMER_K) for r, f in freqs]
+        fsrv.run_until_idle()
+        outs = [h.result(timeout=60) for h in hs]
+    for out, (r, f) in zip(outs, freqs):
+        assert out is not None, r
+        oracle.check(out["data"], np.arange(*r), f"read under faults {f}")
+    fio = flips.io_stats
+    faults = {"reads": plan.reads, "eio_raised": plan.eio_raised, "flips": plan.flips,
+              **{kk: fio[kk] for kk in ("read_retries", "read_failures", "checksum_retries",
+                                        "checksum_failures")}}
+    assert plan.eio_raised > 0 and plan.flips == 1 and fio["read_failures"] == 0, faults
+    assert fio["checksum_retries"] >= 1 and fsrv.batcher.stats["isolated_failures"] == 0, faults
+
+    # (3) the scrubber repairs the medium; sweeps unlimited and at half rate
+    t0 = time.perf_counter()
+    res = Scrubber(store, auto_repair=True).run_once("heal")
+    repair_sweep_s = time.perf_counter() - t0
+    assert res["complete"] and {f["action"] for f in res["findings"]} == {"repaired"}, res
+    assert sorted(b for f in res["findings"] for b in f["repaired_blocks"]) == sorted(hl["damaged"])
+    fresh = SageContainerV2.open(path)
+    assert fresh.verify_blocks() == [] and fresh.verify_parity() == []
+    store.evict()
+    healed = store.io_stats["reconstructions"]  # the repair's own rebuilds included
+    for gi in (hl["damaged"][0] // GROUP, g1):  # the fresh reader's dictionaries re-upload
+        out = sess.read("heal", (gi * GROUP, (gi + 1) * GROUP), "onehot")
+        oracle.check(out, out["block_ids"], "heal read after repair")
+    assert store.io_stats["reconstructions"] == healed, "reads after the repair still reconstructed"
+    free = Scrubber(store).run_once("heal")
+    limit = free["effective_bps"] / 2
+    limited = Scrubber(store, rate_bps=limit).run_once("heal")
+    assert free["complete"] and limited["complete"] and not limited["findings"]
+    assert limited["effective_bps"] <= 1.2 * limit, (limited, limit)
+    rb = hl["repair_block"]
+    corrupt_extents(path, [rb], byte=11, bit=2)
+    t0 = time.perf_counter()
+    summary = store.repair("heal", group=rb // GROUP)
+    repair_s = time.perf_counter() - t0
+    assert summary["repaired_blocks"] == [rb], summary
+
+    # (4) beyond the budget: two damaged extents in one xor group
+    corrupt_extents(path, hl["beyond"], byte=9, bit=6)
+    gb = hl["beyond"][0] // GROUP
+    bsrv = SageServer(SessionPool(max_prepared=64, group_blocks=GROUP))
+    bsrv.pool.register("heal", str(path))
+    bad = [((gb * GROUP, gb * GROUP + 4), "2bit"), ((hl["beyond"][0] - 2, hl["beyond"][0] + 2), "kmer")]
+    ok = [(((gb - 1) * GROUP, (gb - 1) * GROUP + 4), "2bit"), (((gb + 1) * GROUP, (gb + 1) * GROUP + 4), "kmer"),
+          (((gb + 2) * GROUP, (gb + 2) * GROUP + 4), "onehot")]
+    h_bad = [bsrv.read("heal", r, f, kmer_k=KMER_K) for r, f in bad]
+    h_ok = [bsrv.read("heal", r, f, kmer_k=KMER_K) for r, f in ok]
+    bsrv.run_until_idle()
+    for h in h_bad:
+        try:
+            h.result(timeout=60)
+        except IntegrityError as e:
+            assert e.block_group == gb, e
+        else:
+            raise AssertionError("a request on damage beyond the parity budget was served")
+    for h, (r, f) in zip(h_ok, ok):
+        out = h.result(timeout=60)
+        assert out is not None, r
+        oracle.check(out["data"], np.arange(*r), f"healthy read beside quarantine {f}")
+    bst = bsrv.batcher.stats
+    assert bst["isolated_failures"] == len(bad) and bst["auto_repairs"] == 0 and bst["repair_attempts"] >= 1, bst
+    assert gb in bsrv.health("heal")["quarantined_groups"]
+    for s in (fsrv, bsrv):
+        s.stop()
+    counts = trace_counts()
+    plain = {kk: v for kk, v in counts.items() if kk.startswith("plain:")}
+    assert not plain, f"the heal path ran plain versions on the card: {plain}"
+    launches = {kk: counts.get(f"launch:{kk}", 0)
+                for kk in ("sage_unpack", "sage_decode", "sage_fused", "kmer_pack", "one_hot")}
+    assert all(n > 0 for kk, n in launches.items() if kk != "one_hot"), launches
+    emit("heal", blocks=st["n_blocks"], parity=f"xor/{hl['parity_group']}", container_bytes=st["file_nbytes"],
+         crc32c="C extension" if hasattr(layout, "_crc32c_c") else "python (no google_crc32c)",
+         parity_overhead=st["parity_overhead"], write_seconds=write_s,
+         damaged_blocks=list(hl["damaged"]), reconstructions=recon, read_ms=timed,
+         faults=faults, scrub={"repair_sweep_seconds": repair_sweep_s,
+                               "findings": [{kk: f[kk] for kk in ("group", "blocks", "action")}
+                                            for f in res["findings"]],
+                               "unlimited_bps": free["effective_bps"], "limit_bps": limit,
+                               "limited_bps": limited["effective_bps"],
+                               "bytes_scanned": free["bytes_scanned"], "unlimited_seconds": free["elapsed_s"],
+                               "limited_seconds": limited["elapsed_s"]},
+         repair_one_group_seconds=repair_s, repair_summary=summary,
+         beyond_budget={"quarantined_group": gb, "failed_requests": len(bad), "served_requests": len(ok),
+                        **{kk: bst[kk] for kk in ("repair_attempts", "auto_repairs", "isolated_failures")}},
+         launches=launches, plain_calls=plain, seconds=time.perf_counter() - t_phase)
+    return launches
 
 
 def main() -> None:
@@ -1228,7 +1556,13 @@ def main() -> None:
     isp_phase(ref_ill)
 
     # ---- lm: mamba2-370m at full width serves store-derived prompts --------
-    launches["ssd_intra"] = lm_phase(dev, lm_cfg)
+    launches["ssd_intra"], engine = lm_phase(dev, lm_cfg)
+
+    # ---- serve: the SageServer frontend; heal: the self-healing store -------
+    serve_phase(lm_cfg, engine, oracles["illumina"])
+    del engine
+    torch.cuda.empty_cache()
+    heal_phase(src, oracles["illumina"])
     for k, v in table.items():
         v["launches"] = launches[k]
     kernels = [{"name": k, **{f: v[f] for f in (

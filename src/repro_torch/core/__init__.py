@@ -45,4 +45,5 @@ from repro_torch.core.layout import (
     open_container,
     write_v2,
 )
+from repro_torch.core.scrub import Scrubber
 from repro_torch.core.store import SageReadSession, SageStore, StreamBatch, slice_device_blocks

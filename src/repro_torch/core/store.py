@@ -160,6 +160,7 @@ class SageStore:
         self._extent_cache = HostExtentCache(cache_budget)
         self._cache_stats: dict[str, dict[str, int]] = {}
         self._quarantine: dict[str, set[int]] = {}
+        self._scrubber = None  # set by repro_torch.core.scrub.Scrubber
         self._lock = threading.RLock()
         # serializes container disk access only, so a prefetching reader of
         # one group never holds the lock a consumer needs to decode another
@@ -358,6 +359,10 @@ class SageStore:
         the same dataset keep serving (the serving frontend keys its
         failure isolation on exactly this granularity).
 
+        With a :class:`repro_torch.core.scrub.Scrubber` attached, every
+        dataset dict additionally carries ``"scrub"`` — sweep progress and
+        the last sweep's findings for that dataset.
+
         Asking about an unregistered dataset raises ``ValueError`` naming
         it (consistent with ``register``'s eager validation) — a typo'd
         monitoring probe must not read as a clean bill of health."""
@@ -368,14 +373,21 @@ class SageStore:
                         f"dataset {name!r} is not registered; have {self.names()}"
                     )
                 q = tuple(sorted(self._quarantine.get(name, ())))
-                return {"ok": not q, "quarantined_groups": q}
-            return {
+                out = {"ok": not q, "quarantined_groups": q}
+                if self._scrubber is not None:
+                    out["scrub"] = self._scrubber.status_for(name)
+                return out
+            report = {
                 n: {
                     "ok": not self._quarantine.get(n),
                     "quarantined_groups": tuple(sorted(self._quarantine.get(n, ()))),
                 }
                 for n in self._sources
             }
+            if self._scrubber is not None:
+                for n in report:
+                    report[n]["scrub"] = self._scrubber.status_for(n)
+            return report
 
     def clear_quarantine(self, name: str, group: Optional[int] = None) -> None:
         """Lift quarantine after repair (``group=None`` clears the dataset).
@@ -416,8 +428,8 @@ class SageStore:
     ) -> None:
         """Quarantine a block group explicitly — the scrubber's path for
         damage parity cannot fix (the internal path quarantines on the
-        original read error). Re-access fails fast until
-        ``clear_quarantine`` lifts it."""
+        original read error). Re-access fails fast until ``repair`` (or
+        ``clear_quarantine``) lifts it."""
         with self._lock:
             if name not in self._sources:
                 raise ValueError(
@@ -430,11 +442,109 @@ class SageStore:
             self._quarantine_group(name, group, err)
 
     def repair(self, name: str, group: Optional[int] = None) -> dict:
-        """Parity repair of damaged extents is not ported yet."""
-        raise NotImplementedError(
-            "store.repair (parity reconstruction) is not ported yet "
-            "(ROADMAP Queue A, slice 4: scrub and faults)"
-        )
+        """Scan, reconstruct, and durably rewrite damaged extents of a v2
+        dataset; quarantine lifts only after a fresh-handle re-verify.
+
+        Scope: ``group`` repairs one store block group; ``None`` repairs
+        every currently-quarantined group, or — with nothing quarantined —
+        scans the whole container (the scrubber's full-sweep path). The
+        sequence per scope: CRC-scan the extents, rebuild the damaged ones
+        from parity + survivors (:meth:`SageContainerV2.reconstruct_blocks`),
+        atomically rewrite them (tmp + fsync + ``os.replace``), then scan +
+        rebuild + rewrite damaged parity shards from the now-clean data,
+        re-open the container fresh and re-verify before clearing the
+        quarantine. Damage exceeding the parity budget (or a container
+        without parity) quarantines the affected groups and re-raises the
+        typed :class:`IntegrityError`. Returns a summary dict."""
+        with self._lock:
+            if name not in self._sources:
+                raise ValueError(
+                    f"dataset {name!r} is not registered; have {self.names()}"
+                )
+            r = self._reader(name)
+            if r is None:
+                raise ValueError(
+                    f"dataset {name!r} is not a v2 block-extent container — "
+                    f"repair applies to lazy (v2) sources only"
+                )
+            nb = r.meta.n_blocks
+            gb = self.group_blocks
+            n_groups = -(-nb // gb)
+            if group is not None:
+                if not 0 <= group < n_groups:
+                    raise ValueError(
+                        f"dataset {name!r} has {n_groups} block groups; "
+                        f"group {group} out of range"
+                    )
+                scope = {int(group)}
+            elif self._quarantine.get(name):
+                scope = set(self._quarantine[name])
+            else:
+                scope = None  # full sweep
+            if scope is None:
+                ids = None
+                scanned = nb
+            else:
+                ids = np.concatenate([
+                    np.arange(g * gb, min((g + 1) * gb, nb), dtype=np.int64)
+                    for g in sorted(scope)
+                ])
+                scanned = int(ids.size)
+            bad = r.verify_blocks(ids)
+            repaired: dict = {}
+            if bad:
+                try:
+                    repaired = r.reconstruct_blocks(bad)
+                except IntegrityError as e:
+                    e.dataset = name
+                    for b in e.blocks or bad:
+                        self._quarantine_group(name, int(b) // gb, e)
+                    raise
+                r.rewrite_extents(repaired)
+            # parity shards are rebuilt AFTER the data rewrite — their
+            # recompute reads group members from the (now clean) medium
+            pgroups = None
+            if r.parity is not None and ids is not None:
+                pg = int(r.parity["group_blocks"])
+                pgroups = sorted({int(b) // pg for b in ids})
+            bad_parity = r.verify_parity(pgroups)
+            parity_fixed: dict = {}
+            if bad_parity:
+                parity_fixed = r.rebuild_parity(bad_parity)
+                r.rewrite_extents({}, parity_fixed)
+            # fresh handle: re-verify the repaired bytes end-to-end before
+            # any quarantine lifts (the old handle may hold stale state);
+            # the codec dictionaries on the device were keyed by the old
+            # handle, and re-upload from the fresh one on the next miss
+            self._readers.pop(name, None)
+            self._device_dicts.pop(r, None)
+            fresh = self._reader(name)
+            still_bad = fresh.verify_blocks(ids)
+            if still_bad:
+                err = IntegrityError(
+                    f"dataset {name!r}: repair re-verify failed for "
+                    f"block(s) {still_bad} — quarantine stands",
+                    dataset=name, path=str(fresh.path),
+                    blocks=tuple(still_bad),
+                )
+                for b in still_bad:
+                    self._quarantine_group(name, int(b) // gb, err)
+                raise err
+            q = set(self._quarantine.get(name, ()))
+            lifted = sorted(q if scope is None else (q & scope))
+            for gi in lifted:
+                self.clear_quarantine(name, gi)
+            # repaired bytes equal the originally-committed bytes (CRC-
+            # verified), so surviving cache entries (host extent cache and
+            # device LRU) are already correct
+            return {
+                "dataset": name,
+                "scanned_blocks": scanned,
+                "damaged_blocks": sorted(int(b) for b in bad),
+                "repaired_blocks": sorted(int(b) for b in repaired),
+                "repaired_parity_shards": sorted(int(p) for p in parity_fixed),
+                "lifted_groups": lifted,
+            }
 
     def block_nbytes(self, name: str) -> int:
         """Per-block device payload bytes in the prepared block-major layout

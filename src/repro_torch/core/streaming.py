@@ -363,3 +363,65 @@ class PipelinedStream:
             self.close()
         except Exception:
             pass  # interpreter teardown
+
+
+class HostPrefetcher:
+    """Fire-and-forget disk → host-cache prefetch for upcoming reads.
+
+    The serving batcher's ISP streams can't run a PipelinedStream (the
+    batcher multiplexes many requests through one fused read per round),
+    but their NEXT chunk is known the moment a chunk is delivered — this
+    worker pulls those groups' extents into the host cache in the
+    background so the next round's ``prepared_for`` skips disk. Errors are
+    swallowed and counted: the store quarantines corrupt groups internally,
+    so the request's own next read fails fast with the same typed error it
+    would have hit synchronously (no error ever surfaces from a prefetch
+    that the consumer didn't ask for yet). Host only: the worker reads
+    disk into the host extent cache and makes no CUDA call."""
+
+    def __init__(self, store) -> None:
+        self.store = store
+        self.stats = {"prefetched_groups": 0, "prefetch_errors": 0}
+        self._queue: "queue.Queue" = queue.Queue()
+        self._queued: set = set()  # dedup: at most one pending job per group
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._run, name="sage-host-prefetch", daemon=True
+        )
+        self._thread.start()
+
+    def enqueue(self, name: str, gi: int) -> bool:
+        key = (name, int(gi))
+        with self._lock:
+            if self._stop.is_set() or key in self._queued:
+                return False
+            self._queued.add(key)
+        self._queue.put(key)
+        return True
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            try:
+                key = self._queue.get(timeout=_PUT_TIMEOUT)
+            except queue.Empty:
+                continue
+            try:
+                if self.store.prefetch_group_host(*key):
+                    self.stats["prefetched_groups"] += 1
+            except Exception:
+                self.stats["prefetch_errors"] += 1
+            finally:
+                with self._lock:
+                    self._queued.discard(key)
+
+    def close(self) -> None:
+        self._stop.set()
+        if self._thread.is_alive():
+            self._thread.join(timeout=5.0)
+
+    def __del__(self) -> None:
+        try:
+            self.close()
+        except Exception:
+            pass

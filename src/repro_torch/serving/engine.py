@@ -1,22 +1,56 @@
-"""Serving entry point: SAGe's k-mer prompts into the LM engine.
+"""Serving entry point: the SAGe production frontend + the LM engine (the
+port of ``src/repro/serving/engine.py``).
 
 :func:`prompts_from_store` turns decoded reads of a stored dataset into
 k-mer token prompts. :class:`ServingEngine` runs padded-slot prefill and a
 decode loop over one model (greedy or temperature sampling) on the device
-of the model's parameters. The multi-tenant front door, ``SageServer``, is
-not ported yet.
+of the model's parameters.
+
+:class:`SageServer` is the multi-tenant front door, wiring the serving
+subsystem together::
+
+        submit()            Scheduler (serving/scheduler.py)
+    client ──────> waiting queue ──admit──> running set
+                                             │ continuous batches
+                                             v
+                   ContinuousBatcher (serving/batching.py)
+                     fused bucketed SAGe_Read / consensus / ISP chunks
+                     + padded-batch LM generation
+                                             │
+                   SessionPool (serving/session_pool.py)
+                     one shared SageStore: block-granular device LRU,
+                     host extent cache, per-decode-path sessions
+                                             │
+    client <──── ResponseHandle.chunks() ────┘  (streaming, abortable,
+                                                 backpressured)
+
+Every decoded chunk flows to its requesting tenant as soon as its fused
+batch lands (the paper's "send each read to the analysis system as soon
+as it is decoded", §5.1, made multi-tenant), and hot datasets stay
+resident on the device across all of them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import threading
+import time
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
-from repro_torch.core.api import pick_k
+from repro_torch.core.api import get_format, pick_k
+from repro_torch.core.store import SageStore
 from repro_torch.models import lm
+from repro_torch.serving.batching import ContinuousBatcher
+from repro_torch.serving.scheduler import (
+    Request,
+    RequestState,
+    ResponseHandle,
+    Scheduler,
+)
+from repro_torch.serving.session_pool import SessionPool
 
 
 def prompts_from_store(
@@ -131,14 +165,170 @@ class ServingEngine:
 
 
 class SageServer:
-    """The multi-tenant serving frontend (scheduler, continuous batching,
-    session pool) is not ported yet."""
+    """The serving frontend: ingestion + scheduling + continuous batching
+    over one shared SageStore.
 
-    def __init__(self, *args, **kwargs) -> None:
-        raise NotImplementedError(
-            "SageServer is not ported yet (ROADMAP Queue A, slice 5: serving frontend, "
-            "with SessionPool, the scheduler and the batcher)"
+    ``policy`` picks admission order (``"cache_aware"`` default,
+    ``"fcfs"``); ``max_waiting`` bounds the ingestion queue (backpressure);
+    ``max_batch_requests``/``max_batch_bytes``/``max_union_blocks`` shape
+    the batcher's rounds. Reads decode through the pool's two-step session
+    on the store's device (``cuda`` unless the store was built for the
+    CPU); served chunks are host arrays. Drive it synchronously (``step`` /
+    ``run_until_idle`` — deterministic, what the tests and benches use) or
+    in the background (``start``/``stop`` or a ``with`` block) so clients
+    block only on their own handles."""
+
+    def __init__(
+        self,
+        pool: Optional[SessionPool] = None,
+        *,
+        store: Optional[SageStore] = None,
+        engine: Optional[ServingEngine] = None,
+        policy: str = "cache_aware",
+        max_waiting: int = 64,
+        max_batch_requests: int = 16,
+        max_batch_bytes: int = 64 << 20,
+        max_union_blocks: int = 64,
+    ) -> None:
+        if pool is not None and store is not None:
+            raise ValueError("pass pool= or store=, not both")
+        self.pool = pool if pool is not None else SessionPool(store=store)
+        self.engine = engine
+        self.scheduler = Scheduler(
+            policy=policy, max_waiting=max_waiting,
+            residency=self.pool.request_residency,
         )
+        self.batcher = ContinuousBatcher(
+            self.pool, self.scheduler, engine=engine,
+            max_batch_requests=max_batch_requests,
+            max_batch_bytes=max_batch_bytes,
+            max_union_blocks=max_union_blocks,
+        )
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+
+    # ------------------------------------------------------------- ingestion
+    def submit(
+        self, request: Union[Request, dict], *, timeout: Optional[float] = None
+    ) -> ResponseHandle:
+        """Validate + enqueue a request; returns its streaming handle.
+
+        Validation is submission-time so a bad request fails its OWN
+        caller: unknown dataset, unknown/k-less format, or a generate
+        request on an engine-less server all raise here, never inside the
+        batch loop."""
+        if isinstance(request, dict):
+            request = Request(**request)
+        req = request
+        if req.kind == "generate":
+            if self.engine is None:
+                raise ValueError("this server has no ServingEngine; generate unavailable")
+            if req.prompt is None and not req.dataset:
+                raise ValueError("generate needs prompt= or dataset=")
+        if req.dataset:
+            if req.dataset not in self.pool.store.names():
+                raise KeyError(
+                    f"dataset {req.dataset!r} not registered; have {self.pool.store.names()}"
+                )
+        if req.kind in ("read", "isp"):
+            spec = get_format(req.fmt)
+            if spec.requires_k and req.kmer_k is None:
+                raise ValueError(f"format {spec.name!r} needs kmer_k=")
+        return self.scheduler.submit(req, timeout=timeout)
+
+    # convenience constructors -------------------------------------------------
+    def read(self, dataset: str, block_range=None, fmt="2bit", *,
+             kmer_k: Optional[int] = None, priority: int = 0, **kw) -> ResponseHandle:
+        return self.submit(Request(
+            kind="read", dataset=dataset, block_range=block_range, fmt=fmt,
+            kmer_k=kmer_k, priority=priority), **kw)
+
+    def consensus(self, dataset: str, block_range=None, *, priority: int = 0,
+                  **kw) -> ResponseHandle:
+        return self.submit(Request(
+            kind="consensus", dataset=dataset, block_range=block_range,
+            priority=priority), **kw)
+
+    def stream(self, dataset: str, block_range=None, fmt="2bit", *,
+               kmer_k: Optional[int] = None, blocks_per_fetch: int = 4,
+               max_fetches: Optional[int] = None, priority: int = 0,
+               stream_buffer: Optional[int] = None, **kw) -> ResponseHandle:
+        return self.submit(Request(
+            kind="isp", dataset=dataset, block_range=block_range, fmt=fmt,
+            kmer_k=kmer_k, blocks_per_fetch=blocks_per_fetch,
+            max_fetches=max_fetches, priority=priority,
+            stream_buffer=stream_buffer), **kw)
+
+    def generate(self, prompt: Optional[np.ndarray] = None, *, dataset: str = "",
+                 block_range=None, max_prompt: int = 64, kmer_k: Optional[int] = None,
+                 priority: int = 0, **kw) -> ResponseHandle:
+        return self.submit(Request(
+            kind="generate", prompt=prompt, dataset=dataset,
+            block_range=block_range, max_prompt=max_prompt, kmer_k=kmer_k,
+            priority=priority), **kw)
+
+    # -------------------------------------------------------------- execution
+    def step(self) -> int:
+        """One synchronous admission + fused-batch round."""
+        return self.batcher.step()
+
+    def run_until_idle(self, **kw) -> int:
+        return self.batcher.run_until_idle(**kw)
+
+    def start(self) -> "SageServer":
+        """Serve in a background thread until :meth:`stop`."""
+        if self._thread is not None:
+            return self
+        self._stop.clear()
+
+        def loop() -> None:
+            while not self._stop.is_set():
+                if self.batcher.step() == 0:
+                    time.sleep(0.002)
+
+        self._thread = threading.Thread(target=loop, daemon=True, name="sage-server")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self.batcher.close()  # ISP host-prefetch worker, if one was started
+        if self._thread is None:
+            return
+        self._stop.set()
+        self._thread.join()
+        self._thread = None
+
+    def __enter__(self) -> "SageServer":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+    # ---------------------------------------------------------- observability
+    def stats(self) -> dict:
+        return {
+            "scheduler": dict(self.scheduler.stats),
+            "batcher": dict(self.batcher.stats),
+            "pool": self.pool.stats(),
+            "waiting": len(self.scheduler.waiting),
+            "running": len(self.scheduler.running),
+        }
+
+    def health(self, dataset: Optional[str] = None) -> dict:
+        """Integrity health of the backing store (see ``SageStore.health``):
+        which datasets have quarantined block groups. A quarantined group
+        fails only the requests touching it — this is the operator's view
+        of what degraded and what a repair + ``clear_quarantine`` (or
+        re-register) would restore."""
+        return self.pool.store.health(dataset)
 
 
-__all__ = ["prompts_from_store", "ServeConfig", "ServingEngine", "SageServer"]
+__all__ = [
+    "prompts_from_store",
+    "ServeConfig",
+    "ServingEngine",
+    "SageServer",
+    "Request",
+    "RequestState",
+    "ResponseHandle",
+]

@@ -244,6 +244,14 @@ def test_prompt_slot_truncation_matches_pretruncated(models):
     np.testing.assert_array_equal(eng.generate([long_prompt])[0], eng.generate([long_prompt[:16]])[0])
 
 
-def test_sage_server_is_not_ported():
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        SageServer(store=None)
+def test_sage_server_is_not_ported(stores, models):
+    """Slice 5 (the serving frontend) is ported: a SageServer over the CPU
+    store serves a generate request equal to a direct engine call."""
+    ours, _ = stores
+    _, _, cfg, model = models
+    engine = ServingEngine(cfg, model, ServeConfig(**SC))
+    srv = SageServer(store=ours.store, engine=engine)
+    prompt = np.arange(1, 9, dtype=np.int32)
+    h = srv.generate(prompt=prompt)
+    srv.run_until_idle()
+    np.testing.assert_array_equal(h.result(timeout=0)["tokens"], engine.generate([prompt])[0])

@@ -642,3 +642,100 @@ def test_batched_encoder_on_card_writes_the_sequential_file(cuda, profile):
     if profile == "illumina":
         assert counts.get("launch:align_scan", 0) > 0
     assert sf.diff(SageEncoder(ref_seq, token_target=token_target, batched=False).encode(rs)) == []
+
+
+def _refdec_multisets(sf):
+    """refdec's read multiset of every block of ``sf``."""
+    from repro_torch.core.bitio import unpack_2bit
+    from repro_torch.core.refdec import decode_block
+
+    cons = unpack_2bit(sf.consensus2b, sf.meta.cons_len)
+    return [sorted(bytes(np.asarray(r.seq, np.uint8)) for r in decode_block(sf, b, cons))
+            for b in range(sf.meta.n_blocks)]
+
+
+def _assert_refdec(out, ids, want):
+    toks = np.asarray(out["tokens"].cpu() if isinstance(out["tokens"], torch.Tensor) else out["tokens"])
+    host = {k: np.asarray(out[k].cpu() if isinstance(out[k], torch.Tensor) else out[k])
+            for k in ("read_start", "read_len", "n_reads")}
+    for i, b in enumerate(np.asarray(ids)):
+        n = int(host["n_reads"][i])
+        got = sorted(bytes(toks[i, s:s + ln].astype(np.uint8))
+                     for s, ln in zip(host["read_start"][i, :n], host["read_len"][i, :n]))
+        assert got == want[int(b)], f"block {int(b)} disagrees with refdec"
+
+
+def test_server_on_card_serves_what_a_cpu_server_serves(cuda, tmp_path):
+    """SageServer over a CUDA store and over a CPU store, one burst of reads
+    in three formats and a stream: the same chunks (numpy, or host bf16 for
+    onehot), the same batcher stats, and the card's run launched kernels
+    and no plain version."""
+    from repro_torch.serving import SageServer, SessionPool
+
+    sf = encoded("illumina")
+    path = tmp_path / "ds.sage2"
+    write_v2(sf, path)
+    runs = []
+    for dev in (cuda, "cpu"):
+        pool = SessionPool(device=dev, group_blocks=4)
+        pool.register("ds", str(path))
+        srv = SageServer(pool)
+        nb = pool.store.n_blocks("ds")
+        hs = [srv.read("ds", (i, i + 4), fmt=f, kmer_k=k)
+              for i, (f, k) in enumerate([("2bit", None), ("kmer", 4), ("onehot", None)] * 2)]
+        hs.append(srv.stream("ds", (0, nb), fmt="kmer", kmer_k=4, blocks_per_fetch=3))
+        DT.reset_trace_counts()
+        srv.run_until_idle()
+        counts = DT.trace_counts()
+        srv.stop()
+        runs.append(([list(h.chunks(timeout=0)) for h in hs], counts, dict(srv.batcher.stats)))
+    (card, counts, st_card), (cpu, _, st_cpu) = runs
+    assert not any(k.startswith("plain:") for k in counts), counts
+    for k in ("launch:sage_unpack", "launch:sage_decode", "launch:kmer_pack", "launch:one_hot"):
+        assert counts.get(k), (k, counts)
+    for key in ("rounds", "fused_reads", "fused_read_requests", "fused_blocks"):
+        assert st_card[key] == st_cpu[key], key
+    want = _refdec_multisets(sf)
+    for mine, theirs in zip(card, cpu):
+        assert len(mine) == len(theirs) >= 1
+        for a, b in zip(mine, theirs):
+            np.testing.assert_array_equal(a["block_ids"], b["block_ids"])
+            assert sorted(a["data"]) == sorted(b["data"])
+            for key, v in a["data"].items():
+                if isinstance(v, torch.Tensor):  # bf16 onehot: a host tensor
+                    assert v.device.type == "cpu" and torch.equal(v, b["data"][key]), key
+                else:
+                    np.testing.assert_array_equal(v, b["data"][key], err_msg=key)
+            _assert_refdec(a["data"], a["block_ids"], want)
+
+
+def test_scrub_and_repair_heal_a_parity_container_behind_a_card_store(cuda, tmp_path):
+    """At-rest damage in two parity groups of an xor container: a CUDA
+    store's reads reconstruct in flight (two-step and fused) and equal
+    refdec; the scrubber then repairs the medium, and reads after the
+    repair (fresh reader, re-uploaded codec dictionaries) equal refdec."""
+    from repro_torch.core import SageStore, Scrubber
+    from repro_torch.testing import corrupt_extents
+
+    sf = encoded("illumina")
+    path = tmp_path / "p.sage2"
+    write_v2(sf, path, parity="xor", parity_group=4)
+    corrupt_extents(path, [1, 9], byte=7, bit=5)
+    store = SageStore(device=cuda, group_blocks=4)
+    store.register("ds", str(path))
+    want = _refdec_multisets(sf)
+    DT.reset_trace_counts()
+    for fused in (False, True):
+        out = store.session(fused=fused).read("ds", None, "kmer", kmer_k=4)
+        _assert_refdec(out, out["block_ids"], want)
+    assert not any(k.startswith("plain:") for k in DT.trace_counts())
+    assert store.io_stats["reconstructions"] >= 2 and store.health("ds")["ok"]
+    r = Scrubber(store, chunk_blocks=4).run_once("ds")
+    assert r["complete"] and sorted(b for f in r["findings"] for b in f["repaired_blocks"]) == [1, 9]
+    assert SageContainerV2.open(path).verify_blocks() == []
+    store.evict()
+    before = store.io_stats["reconstructions"]
+    for fused in (False, True):
+        out = store.session(fused=fused).read("ds", None, "onehot")
+        _assert_refdec(out, out["block_ids"], want)
+    assert store.io_stats["reconstructions"] == before  # the medium is clean now

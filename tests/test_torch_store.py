@@ -172,5 +172,7 @@ def test_unported_options_raise_with_roadmap_item(codec_path):
     sf = ours.write("x", rs, cons, token_target=4096, batched=True)
     assert sf.diff(theirs.write("x", rs, cons, token_target=4096, batched=True)) == []
     assert ours.last_write_stats["n_batch_mapped"] > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 4"):
-        ours.repair("ds")
+    # slice 4 (scrub, faults, repair) is ported: a full-sweep repair of a
+    # clean container returns repro's summary
+    assert ours.repair("ds") == theirs.repair("ds")
+    assert ours.repair("ds")["damaged_blocks"] == []
