@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: SAGe_Write (batched),
 SAGe_Read, SAGe_ISP (streams, the exact-match filter, the store-backed
 mapper), the LM token pipeline, mamba2-370m serving store-derived prompts,
-the multi-tenant SageServer frontend and the self-healing store (parity
-reconstruction, scrub, repair), through the hand-written CUDA kernels,
+the multi-tenant SageServer frontend, the self-healing store (parity
+reconstruction, scrub, repair) and mamba2-370m trained on SAGe k-mer tokens
+with checkpoints, through the hand-written CUDA kernels,
 checked against the sequential numpy encoder and decoder, the plain torch
 versions and the CPU.
 
@@ -32,7 +33,9 @@ Phases, each printing one JSON line:
            route) shapes in bf16 and f32, chunks of 2, 17 and 127 steps,
            zamba2-2.7b's N = 64, and large-decay cases in f32 and bf16 (TF32
            off for matmul and cuDNN); B6's rows carry the share of the bound
-           reached; the banded-alignment DP on one 1024-lane chunk of the
+           reached; B6's backward kernel at the train shape (the prefill
+           shape, bf16 x; timed) and in f32, at large decay, Q = 17 and
+           N = 64, against ssd_intra_bwd_plain; the banded-alignment DP on one 1024-lane chunk of the
            batched mapper's Illumina lanes (L 150, band 24) and every case of
            tests/dp_cases.py (widths up to 641), bit for bit, with its plan
            (grid, threads, shared memory, ptxas registers and spills)
@@ -89,6 +92,18 @@ Phases, each printing one JSON line:
            and a half-rate sweep, one timed group repair; then two damaged
            extents in one parity group fail only the requests touching
            them (repair attempted once, group quarantined)
+  train    mamba2-370m at full width (weights from a seeded generator on
+           the card) trained by the port's Trainer for 8 steps of 8 x 512
+           k-mer tokens (k = 7) from a fused SageTokenPipeline over Illumina
+           tiles no earlier phase touched, remat on, bf16 activations, a
+           checkpoint at step 4: every batch against refdec's k-mer stream,
+           losses finite and falling, launch counts from 0 (B6 forward
+           96 and backward 48 a step, B1 and B5, no plain call); the step-4
+           checkpoint restored into a fresh Trainer and pipeline gives the
+           same batches and losses for steps 5-8 within 1e-3; a 2-layer
+           full-width cut's step (f32 activations) against the CPU, every
+           leaf within tests/train_cases.py's bounds; step ms, tokens/s,
+           peak memory, checkpoint bytes, a profile of one step
 Then the kernel table as one JSON line (B1's, B2's, B3's and B5's rows
 with their launch `plan`, B1's and B3's with the launch floor), the card's
 name and power limit,
@@ -97,7 +112,9 @@ and the final {"ok": true, ...} line. Any failure raises (exit code != 0).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import re
 import shutil
@@ -143,13 +160,16 @@ try:
     from repro_torch.kernels.banded_align import align_plan, align_rows, dp_inputs
     from repro_torch.kernels.reformat import kmer_plan
     from repro_torch.kernels.sage_decode import launch_plan, unpack_plan
-    from repro_torch.kernels.ssd_chunk import ssd_intra, ssd_intra_plain
+    from repro_torch.kernels.ssd_chunk import ssd_intra, ssd_intra_bwd, ssd_intra_bwd_plain, ssd_intra_plain
     from repro_torch.models import lm
     from repro_torch.serving import SageServer, ServeConfig, ServingEngine, SessionPool, prompts_from_store
     from repro_torch.testing import FaultPlan, corrupt_extents, inject
+    from repro_torch.training import Trainer, TrainerConfig, TrainOptions, init_train_state
+    from repro_torch.training.optimizer import AdamWConfig
 
     sys.path.insert(0, str(ROOT / "tests"))
     from dp_cases import CARD_DP_CASES, scan_inputs  # the DP's card test cases (numpy + the port)
+    from train_cases import compare_step, cut_batch, cut_models, one_step  # a train step, card vs CPU
 except ImportError as e:  # run outside a checkout of the repository
     print(f"chip_smoke: cannot import the port ({e}); run from the repository root", file=sys.stderr)
     sys.exit(2)
@@ -198,6 +218,17 @@ SERVE = dict(start=20480, reads=64, read_blocks=4, streams=4, stream_blocks=256,
 # an in-flight EIO / flip plan, then two damaged extents in one parity group
 HEAL = dict(tiles=128, parity_group=4, damaged=(5, 100), flip_block=300, repair_block=700,
             beyond=(200, 201))
+# the train phase: mamba2-370m at full width, 8 steps of 8 x 512 k-mer tokens
+# (k = 7) from tiles 3072-3073 of the Illumina layout (blocks 24576-24591, which
+# no earlier phase touched) in a container of their own (a pipeline's cursor
+# counts from its dataset's first block); a checkpoint at step 4 resumed by a
+# fresh trainer and pipeline; a 2-layer full-width cut's step against the CPU
+TRAIN = dict(first_tile=3072, tiles=2, batch=8, seq=512, steps=8, ckpt_at=4, seed=5, lr=2e-3, warmup=2,
+             cut_layers=2, cut_batch=2, resume_rtol=1e-3)
+# B6's backward against its plain version, (rtol, atol as a share of the
+# plain gradient's largest value): f32 sums of up to Q·N products in
+# another order; dx in bf16 within one bf16 ulp
+B6_BWD_TOL = {"f32": (1e-5, 1e-5), "dx_bf16": (8e-3, 1e-5)}
 WORK = ROOT / "build" / "smoke_data"
 
 
@@ -340,21 +371,22 @@ def source_block(b: int, n_src: int) -> int:
     return (j + (h >> 33)) % n_src
 
 
-def tile_sage_file(sf: SageFile, times: int) -> SageFile:
-    """Replicate a container block-wise ``times`` x. Tile ``t`` lays out the
+def tile_sage_file(sf: SageFile, times: int, first: int = 0) -> SageFile:
+    """Replicate a container block-wise ``times`` x: tiles ``first`` to
+    ``first + times - 1`` of the tiled layout. Tile ``t`` lays out the
     words of its source blocks in ``source_block`` order (blocks start on
     word boundaries), so directory offsets stay monotonic, as the encoder
     writes them, and every tiled block decodes exactly like its source
     block. Consensus is shared across tiles (reads re-map the same
     reference), matching how depth scales in a real dataset."""
-    if times <= 1:
+    if times <= 1 and first == 0:
         return sf
     n = sf.meta.n_blocks
     sizes = {s: int(sf.streams[s].size) for s in STREAMS}
     layouts: dict[tuple, tuple] = {}  # source order -> (streams, offsets in words)
     tile_streams: dict[str, list] = {s: [] for s in STREAMS}
     tiles = []
-    for t in range(times):
+    for i, t in enumerate(range(first, first + times)):
         order = tuple(source_block(t * n + j, n) for j in range(n))
         if order not in layouts:
             words, offs = {}, {}
@@ -371,7 +403,7 @@ def tile_sage_file(sf: SageFile, times: int) -> SageFile:
         d = sf.directory[list(order)].copy()
         for s in STREAMS:
             tile_streams[s].append(words[s])
-            d[:, D[f"off_{s}"]] = (t * sizes[s] + offs[s]) * 32
+            d[:, D[f"off_{s}"]] = (i * sizes[s] + offs[s]) * 32
         tiles.append(d)
     streams = {s: np.concatenate(tile_streams[s]) for s in STREAMS}
     bits = dict(sf.meta.stream_bits)
@@ -495,6 +527,46 @@ def ssd_check(args, x_dtype) -> dict:
         out[f"{key}_err"] = max_abs_err(a, b)
         out[f"{key}_ok"] = bool(torch.allclose(a.float(), b.float(), rtol=tol[0], atol=tol[1]))
     out["match"] = out["finite"] and out["y_ok"] and out["state_ok"] and out["total_ok"]
+    return out
+
+
+def ssd_grads(shape, x_dtype, seed: int, dev):
+    """dy (x's dtype), dst and dtotal of B6's backward, made from a seed."""
+    Bb, nc, Q, H, P, N = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((Bb, nc, Q, H, P), generator=g, device=dev).to(x_dtype),
+            torch.randn((Bb, nc, H, P, N), generator=g, device=dev),
+            torch.randn((Bb, nc, H), generator=g, device=dev))
+
+
+def ssd_bwd_bound(shape, x_bytes: int) -> tuple[float, str]:
+    """B6 backward's least time: x, dy, dt, a, B, C, dst and dtotal read once,
+    dx, ddt, da, dB and dC written once, over HBM_BYTES_PER_S;
+    3Q(Q+1)N + 2Q(Q+1)P + 4QNP f32 operations a (b, chunk, head) over
+    B6_OPS_PER_S, the card's rate for f32-accurate products, as ssd_bound
+    (the rate of the card, not of this kernel's SIMT route). The causal
+    products C·Bᵀ, dy·uᵀ, Mᵀ·dy, dS·B and dSᵀ·C need Q(Q+1)/2 entries each;
+    dst·B and dstᵀ·x 2QNP each. The larger of the two."""
+    Bb, nc, Q, H, P, N = shape
+    rows = Bb * nc * Q * H
+    nbytes = 3 * rows * P * x_bytes + 4 * rows * 4 + 4 * rows * N * 4 + Bb * nc * H * (P * N + 1) * 4
+    ops = Bb * nc * H * (3 * Q * (Q + 1) * N + 2 * Q * (Q + 1) * P + 4 * Q * N * P)
+    return bound(nbytes, ops, B6_OPS_PER_S)
+
+
+def ssd_bwd_check(args) -> dict:
+    """B6's backward against its plain version on the same inputs: max abs
+    errors, the plain gradients' largest values, and whether each lies
+    within B6_BWD_TOL."""
+    got, want = ssd_intra_bwd(*args), ssd_intra_bwd_plain(*args)
+    torch.cuda.synchronize()
+    out = {"finite": all(bool(torch.isfinite(t.float()).all()) for t in got)}
+    for key, a, b in zip(("dx", "ddt", "da", "dB", "dC"), got, want):
+        rtol, atol = B6_BWD_TOL["dx_bf16" if a.dtype == torch.bfloat16 else "f32"]
+        top = float(b.float().abs().max())
+        out[f"{key}_err"], out[f"{key}_max"] = max_abs_err(a, b), top
+        out[f"{key}_ok"] = bool(torch.allclose(a.float(), b.float(), rtol=rtol, atol=atol * top))
+    out["match"] = out["finite"] and all(out[f"{k}_ok"] for k in ("dx", "ddt", "da", "dB", "dC"))
     return out
 
 
@@ -1076,6 +1148,132 @@ def heal_phase(src: SageFile, oracle: "Oracle") -> dict:
     return launches
 
 
+def train_phase(dev, cfg, src: SageFile, oracle: "Oracle") -> int:
+    """mamba2-370m at full width trained on the card through the port's
+    Trainer: 8 steps of 8 x 512 k-mer tokens (k = 7) from a fused
+    SageTokenPipeline over Illumina tiles no earlier phase touched, remat
+    on, bf16 activations, a checkpoint at step 4. Checks: every batch
+    against refdec's k-mer stream, every loss finite and the last below the
+    first, launch counts from 0 (B6 forward twice a layer a step, its
+    backward once, B1 and B5 from the pipeline, no plain call); the run's
+    step-4 checkpoint restored into a fresh Trainer and pipeline gives the
+    same batches and, within TRAIN["resume_rtol"], the same losses for
+    steps 5-8; a 2-layer full-width cut's step on the card against the CPU
+    (tests/train_cases.py). Reports step ms, tokens/s, peak memory, the
+    checkpoint's bytes, and a profile of one step. Returns B6 backward's
+    launches on the path."""
+    tr = TRAIN
+    t_phase = time.perf_counter()
+    n_src = src.meta.n_blocks
+    path = WORK / "train.sage2"
+    write_v2(tile_sage_file(src, tr["tiles"], first=tr["first_tile"]), path)
+    ckdir = WORK / "train_ckpt"
+    k = pick_k(cfg.vocab)
+    opts = TrainOptions(adamw=AdamWConfig(lr=tr["lr"], warmup_steps=tr["warmup"], total_steps=tr["steps"]))
+    need = tr["batch"] * (tr["seq"] + 1)
+
+    def trainer(seed: int, keep_last: int):
+        """A fresh model, store, pipeline and Trainer; the batches it takes
+        are kept in ``seen``."""
+        store = SageStore(group_blocks=GROUP)
+        store.register("train", str(path))
+        pipe = SageTokenPipeline("train", cfg.vocab, tr["batch"], tr["seq"], store=store)
+        assert pipe.k == k
+        seen = []
+
+        def tap(it):
+            for b in it:
+                seen.append(b)
+                yield b
+
+        model, opt = init_train_state(torch.Generator(device=dev).manual_seed(seed), cfg, opts, device=dev)
+        tc = TrainerConfig(total_steps=tr["steps"], ckpt_every=tr["ckpt_at"], log_every=1,
+                           ckpt_dir=str(ckdir), keep_last=keep_last)
+        return Trainer(tc, cfg, opts, model, opt, tap(pipe.batches())), pipe, seen
+
+    # (a) the run: counts from 0, 8 steps, checkpoints at 4 and 8
+    t1, pipe, seen = trainer(tr["seed"], keep_last=2)
+    n_params = sum(p.numel() for p in t1.model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_trace_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        hist = t1.run(pipeline=pipe)
+    run_s = time.perf_counter() - t0
+    counts = trace_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    step_ms = [h["dt"] * 1e3 for h in hist]
+    L, S = cfg.n_layers, tr["steps"]
+    path_n = {kk: counts.get(f"launch:{kk}", 0) for kk in ("sage_unpack", "sage_fused", "ssd_intra", "ssd_intra_bwd")}
+    plain = {kk: v for kk, v in counts.items() if kk.startswith("plain:")}
+    assert not plain, f"the train path ran plain versions on the card: {plain}"
+    assert path_n["sage_unpack"] > 0 and path_n["sage_fused"] > 0, path_n
+    assert (path_n["ssd_intra"], path_n["ssd_intra_bwd"]) == (2 * L * S, L * S), path_n
+    assert len(losses) == S and all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], f"training did not reduce the loss: {losses}"
+    base = tr["first_tile"] * n_src  # the train container's block j is block base + j of the layout
+    kpb = [oracle.rows[source_block(base + j, n_src)].size // k for j in range(tr["tiles"] * n_src)]
+    n_blocks = int(np.searchsorted(np.cumsum(kpb), len(seen) * need)) + 1
+    flat = oracle.kmer_stream(np.arange(n_blocks) + base, k)
+    for i, b in enumerate(seen):
+        want = flat[i * need:(i + 1) * need].reshape(tr["batch"], tr["seq"] + 1)
+        assert np.array_equal(b["tokens"], want[:, :-1]) and np.array_equal(b["labels"], want[:, 1:]), \
+            f"train batch {i} disagrees with refdec's k-mer stream"
+    t1.ckpt.wait()
+    ck_bytes = sum(f.stat().st_size for f in (ckdir / f"step_{tr['ckpt_at']}").iterdir())
+
+    # one more step of the run, profiled (after the checks: it moves the model on)
+    def one_step_of_run(_i):
+        b = {kk: torch.as_tensor(v).to(dev) for kk, v in next(t1.data).items()}
+        return t1.step_fn(t1.model, t1.opt, b)[2]["loss"]
+
+    prof = profile_window(one_step_of_run, focus="ssd")
+    del t1
+    torch.cuda.empty_cache()
+
+    # (b) the run lost after its step-4 checkpoint: a fresh trainer and
+    # pipeline (other initial weights) resume from it and run steps 5-8
+    shutil.rmtree(ckdir / f"step_{S}")
+    t2, pipe2, seen2 = trainer(tr["seed"] + 1, keep_last=1)
+    t0 = time.perf_counter()
+    assert t2.maybe_resume(pipe2) and t2.step == tr["ckpt_at"] and int(t2.opt["step"]) == tr["ckpt_at"]
+    resume_s = time.perf_counter() - t0
+    with contextlib.redirect_stdout(io.StringIO()):
+        hist2 = t2.run(pipeline=pipe2)
+    again = [h["loss"] for h in hist2]
+    assert [h["step"] for h in hist2] == list(range(tr["ckpt_at"] + 1, S + 1)), hist2
+    for b, ref_b in zip(seen2, seen[tr["ckpt_at"]:S]):
+        assert all(np.array_equal(b[kk], ref_b[kk]) for kk in ("tokens", "labels")), "a resumed batch differs"
+    resume_err = max(abs(a - b) / abs(b) for a, b in zip(again, losses[tr["ckpt_at"]:]))
+    assert resume_err <= tr["resume_rtol"], (again, losses)
+    del t2
+    torch.cuda.empty_cache()
+
+    # (c) a 2-layer full-width cut: one step on the card against the CPU
+    cut, m_dev, m_cpu = cut_models(cfg, tr["cut_layers"], dev, seed=tr["seed"] + 2)
+    cb = cut_batch(cut, tr["cut_batch"], tr["seq"], seed=tr["seed"])
+    c0 = time.perf_counter()
+    vs_cpu = compare_step(one_step(cut, m_dev, cb, dev), one_step(cut, m_cpu, cb, "cpu"))
+    vs_cpu["seconds"] = time.perf_counter() - c0
+    del m_dev, m_cpu
+
+    tok = tr["batch"] * tr["seq"]
+    steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    emit("train", arch=cfg.name, params=n_params, layers=L, d_model=cfg.d_model, vocab=cfg.vocab, kmer_k=k,
+         batch=tr["batch"], seq=tr["seq"], steps=S, remat="nothing", dtype="bfloat16",
+         blocks=[tr["first_tile"] * n_src, (tr["first_tile"] + tr["tiles"]) * n_src],
+         losses=losses, resumed_losses=again, resume_max_rel_err=resume_err, resume_rtol=tr["resume_rtol"],
+         resume_seconds=resume_s, step_ms=step_ms, median_step_ms_after_first=steady,
+         tokens_per_s=tok / (steady / 1e3), run_seconds=run_s, checkpoint_bytes=ck_bytes,
+         launches=path_n, launches_per_step={kk: v / S for kk, v in path_n.items()}, plain_calls=plain,
+         batches_checked_against_refdec=len(seen), peak_device_bytes=peak, profile_step=prof,
+         card_vs_cpu=vs_cpu, seconds=time.perf_counter() - t_phase)
+    shutil.rmtree(ckdir)
+    return path_n["ssd_intra_bwd"]
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # ---- device -----------------------------------------------------------
@@ -1307,6 +1505,37 @@ def main() -> None:
         replaces="src/repro/kernels/ssd_chunk.py:22", match=all(c["match"] for c in b6_checks.values()),
         **b6_rows["prefill"], library_ms=None, decode=b6_rows["decode"])
 
+    # B6's backward at the train shape (mamba2-370m, 8 x 512 tokens: the
+    # prefill shape) with bf16 x, as the train step launches it, timed; as
+    # checks f32 x, large decay in f32 and bf16, a 17-step chunk and
+    # zamba2-2.7b's N = 64
+    bwd_checks, bwd_row = {}, None
+    for i, (shp, xdt, decay) in enumerate([
+        ("prefill", torch.bfloat16, "serve"), ("prefill", torch.float32, "serve"),
+        ("prefill", torch.float32, "large"), ("prefill", torch.bfloat16, "large"),
+        ("q17", torch.float32, "unit"), ("zamba2", torch.bfloat16, "serve"),
+    ]):
+        args = ssd_inputs(b6_shapes[shp], xdt, decay, seed=200 + i, dev=dev) + \
+            ssd_grads(b6_shapes[shp], xdt, seed=300 + i, dev=dev)
+        name = f"{shp}_{str(xdt)[6:]}_{decay}"
+        bwd_checks[name] = ssd_bwd_check(args)
+        if bwd_row is None:
+            b_ms, b_by = ssd_bwd_bound(b6_shapes[shp], 2)
+            bwd_row = dict(
+                shape=list(b6_shapes[shp]),
+                max_abs_err=max(bwd_checks[name][f"{k}_err"] for k in ("dx", "ddt", "da", "dB", "dC")),
+                **timings(lambda args=args: ssd_intra_bwd(*args), 20,
+                          lambda args=args: ssd_intra_bwd_plain(*args), 3),
+                bound_ms=b_ms, bound_by=b_by)
+            bwd_row["bound_share"] = b_ms / bwd_row["ms"]
+        del args
+    table["ssd_intra_bwd"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+        replaces="no TPU twin: jax.grad of src/repro/models/ssm.py:57 ssd_chunked",
+        match=all(c["match"] for c in bwd_checks.values()), **bwd_row, library_ms=None,
+        plan={"ctas": int(np.prod(b6_shapes["prefill"][:2])) * b6_shapes["prefill"][3], "threads": 256,
+              **ptxas_usage("ssd_chunk_bwd", "ssd_bwd_kernel")})
+
     # banded-alignment DP: one full lane chunk of the batched mapper on the
     # Illumina set (1024 lanes, L 150, band 24: width 49), and every card
     # case of tests/dp_cases.py (widths 49, 289 and 641, clipped windows,
@@ -1335,7 +1564,9 @@ def main() -> None:
         plan={**dp_plan, **ptxas_usage("banded_align", f"align_scan_kernelILi{dp_plan['cells_per_thread']}E")})
     del dp_args, dp_rows
     emit("kernels", tolerance={"B1-B5, align_scan": "bit-identical (max_abs_err 0)",
-                               "B6": {**B6_TOL, "rule": "(rtol, atol); matmul and cuDNN TF32 off"}},
+                               "B6": {**B6_TOL, "rule": "(rtol, atol); matmul and cuDNN TF32 off"},
+                               "B6 backward": {**B6_BWD_TOL, "rule": "(rtol, atol as a share of max|plain|)"}},
+         ssd_bwd=table["ssd_intra_bwd"], ssd_bwd_checks=bwd_checks,
          b6_ops_per_s=B6_OPS_PER_S, launch_floor_ms=floor_ms,
          ssd_prefill=b6_rows["prefill"],
          match={k: v["match"] for k, v in table.items()},
@@ -1500,7 +1731,7 @@ def main() -> None:
     step_peak("token_pipeline")
     peak = max(peaks.values())
     launches = {k: counts.get(f"launch:{k}", 0) for k in table
-                if not k.startswith("sage_fused_") and k not in ("ssd_intra", "align_scan")}
+                if not k.startswith("sage_fused_") and k not in ("ssd_intra", "ssd_intra_bwd", "align_scan")}
     launches.update({f"sage_fused_{f}": n for f, n in fused_launches.items()})
     assert sum(fused_launches.values()) == counts.get("launch:sage_fused", 0), counts
     plain = {k: v for k, v in counts.items() if k.startswith("plain:")}
@@ -1563,11 +1794,15 @@ def main() -> None:
     del engine
     torch.cuda.empty_cache()
     heal_phase(src, oracles["illumina"])
+
+    # ---- train: mamba2-370m at full width trains on SAGe k-mer tokens -----
+    launches["ssd_intra_bwd"] = train_phase(dev, lm_cfg, src, oracles["illumina"])
     for k, v in table.items():
         v["launches"] = launches[k]
     kernels = [{"name": k, **{f: v[f] for f in (
         "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-        "bound_ms", "bound_by", "library_ms")}, **{f: v[f] for f in ("plan", "launch_floor_ms") if f in v}}
+        "bound_ms", "bound_by", "library_ms")}, **{f: v[f] for f in ("plan", "launch_floor_ms", "bound_share")
+                                                    if f in v}}
         for k, v in table.items()]
     shutil.rmtree(WORK)
     emit("done", seconds=time.perf_counter() - t_start)

@@ -35,6 +35,7 @@ SOURCES = {
     "sage_decode": "sage_decode.cu",
     "reformat": "reformat.cu",
     "ssd_chunk": "ssd_chunk.cu",
+    "ssd_chunk_bwd": "ssd_chunk_bwd.cu",
     "banded_align": "banded_align.cu",
 }
 NVCC_FLAGS = (

@@ -59,7 +59,10 @@ def ssd(x, dt, A, B_, C_, chunk: int, state0=None):
     f32). Same padding as ``models.ssm.ssd_chunked``: chunks of
     Q = min(chunk, S), padded steps carry dt = 0. The kernel writes the
     intra-chunk term in x's dtype, so in bf16 it is rounded before the state
-    term is added (``ssd_chunked`` rounds once)."""
+    term is added (``ssd_chunked`` rounds once). Under autograd the kernel
+    runs as ``SsdIntra`` (its backward is B6's gradient kernel) and the rest
+    are torch ops autograd follows; the padding is sliced off, so no
+    gradient reaches it."""
     Bb, S0, H, P = x.shape
     N = B_.shape[-1]
     Q = min(chunk, S0)

@@ -8,6 +8,7 @@ one_hot     -> reformat.one_hot_plain
 sage_fused  -> sage_decode.fused_decode_plain (gather, decode, format)
 ssd_chunk   -> models.ssm.ssd_chunked (the model's own reference path);
                the intra-chunk block alone: ssd_chunk.ssd_intra_plain
+ssd_chunk_bwd -> ssd_chunk.ssd_intra_bwd_plain (B6's gradient)
 banded_align -> banded_align.align_scan_plain
 """
 

@@ -15,6 +15,20 @@ the shape alone: Q >= 2 (prefill) runs the three products on tensor cores
 in split-precision TF32 (f32 accuracy, whatever
 ``torch.backends.cuda.matmul.allow_tf32`` says), Q = 1 (a decode step) a
 bandwidth-bound kernel that writes the state ``(x·dt) ⊗ B``.
+
+The gradient (no TPU twin: the JAX package differentiates its plain
+``ssd_chunked``) is :class:`SsdIntra`, whose backward launches
+``csrc/ssd_chunk_bwd.cu`` for CUDA tensors and takes
+:func:`ssd_intra_bwd_plain` for CPU tensors. Per (b, c, head), with
+``u_j = x_j·dt_j``, ``M = (C·Bᵀ)∘L``, ``g_q = exp(total - cum_q)`` and
+``w_q = dt_q·g_q``, from the gradients ``dy``, ``dst`` and ``dtotal``:
+
+    dM = (dy·uᵀ)∘[i >= j]      du = Mᵀ·dy        sB_q = dst·B_q    dw_q = x_q·sB_q
+    dx = du·dt + w·sB          ddt = Σ_P du∘x + g·dw
+    dC = (dM∘L)·B              dB = (dM∘L)ᵀ·C + w·(dstᵀ·x)
+    G = dM∘M                   dcum_i = Σ_j G[i,j] - Σ_k G[k,i] - dw_i·w_i
+                               dcum_{Q-1} += dtotal + Σ_q dw_q·w_q
+    da = reverse_cumsum(dcum)
 """
 
 from __future__ import annotations
@@ -69,6 +83,16 @@ def _lib():
     return lib
 
 
+@functools.cache
+def _bwd_lib():
+    lib = cuda_lib.lib("ssd_chunk_bwd")
+    lib.ssd_bwd_launch.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 12
+                                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.ssd_bwd_launch.restype = ctypes.c_int
+    lib.ssd_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _check_shapes(x, dt, a, B_, C_) -> None:
     if x.dim() != 5:
         raise ValueError(f"ssd_intra: x must be (B, nc, Q, H, P), got {tuple(x.shape)}")
@@ -83,27 +107,20 @@ def _check_shapes(x, dt, a, B_, C_) -> None:
         )
 
 
-def ssd_intra(x, dt, a, B_, C_):
-    """The intra-chunk block; shapes and results as :func:`ssd_intra_plain`.
+def _check_dtypes(name, x, *f32) -> None:
+    if x.dtype not in (F32, torch.bfloat16):
+        raise ValueError(f"{name}: x must be float32 or bfloat16, got {x.dtype}")
+    for arg, t in f32:
+        if t.dtype != F32:
+            raise ValueError(f"{name}: {arg} must be float32, got {t.dtype}")
 
-    CUDA: x in f32 or bf16 and every other input f32, all contiguous,
-    Q <= 128. Q = 1 takes the decode route, Q >= 2 the tensor-core prefill
-    route. The kernel has no backward yet, so it refuses inputs that require
-    grad while grad mode is on."""
-    _check_shapes(x, dt, a, B_, C_)
+
+def _forward(x, dt, a, B_, C_):
+    """One launch of the forward kernel (CUDA) or its plain version (CPU)."""
     if cuda_lib.on_cpu(x, dt, a, B_, C_):
         cuda_lib.COUNTS["plain:ssd_intra"] += 1
         return ssd_intra_plain(x, dt, a, B_, C_)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, B_, C_)):
-        raise RuntimeError(
-            "ssd_intra: the CUDA kernel has no backward yet (it comes with the "
-            "training slice); call it under torch.no_grad() or inference_mode()"
-        )
-    if x.dtype not in (F32, torch.bfloat16):
-        raise ValueError(f"ssd_intra: x must be float32 or bfloat16, got {x.dtype}")
-    for name, t in (("dt", dt), ("a", a), ("B_", B_), ("C_", C_)):
-        if t.dtype != F32:
-            raise ValueError(f"ssd_intra: {name} must be float32, got {t.dtype}")
+    _check_dtypes("ssd_intra", x, ("dt", dt), ("a", a), ("B_", B_), ("C_", C_))
     cuda_lib.require_cuda(x, dt, a, B_, C_, name="ssd_intra")
     Bb, nc, Q, H, P = x.shape
     N = B_.shape[-1]
@@ -125,3 +142,114 @@ def ssd_intra(x, dt, a, B_, C_):
     cuda_lib.check(rc, "ssd_intra", lib.ssd_error_string)
     cuda_lib.COUNTS["launch:ssd_intra"] += 1
     return y, st, total
+
+
+def ssd_intra(x, dt, a, B_, C_):
+    """The intra-chunk block; shapes and results as :func:`ssd_intra_plain`.
+
+    CUDA: x in f32 or bf16 and every other input f32, all contiguous,
+    Q <= 128. Q = 1 takes the decode route, Q >= 2 the tensor-core prefill
+    route. While grad mode is on and an input requires grad, the call goes
+    through :class:`SsdIntra`, whose backward is B6's gradient kernel;
+    otherwise (serving) it is one launch of the forward kernel and nothing
+    is kept for a backward."""
+    _check_shapes(x, dt, a, B_, C_)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, B_, C_)):
+        return SsdIntra.apply(x, dt, a, B_, C_)
+    return _forward(x, dt, a, B_, C_)
+
+
+def ssd_intra_bwd_plain(x, dt, a, B_, C_, dy, dst, dtotal):
+    """The gradient of :func:`ssd_intra_plain`, written out (not autograd).
+
+    dy: (B,nc,Q,H,P) in any float type; dst: (B,nc,H,P,N); dtotal:
+    (B,nc,H). Returns (dx in x's dtype, ddt, da, dB, dC in f32). ``cum``
+    is summed in f64 and only its differences are rounded to f32, as in the
+    forward; the reverse cumulative sum that gives ``da`` runs in f64 too.
+    Everything else is f32, as in the kernel."""
+    Q = x.shape[2]
+    dev = x.device
+    xf, dyf, dt = x.to(F32), dy.to(F32), dt.to(F32)
+    B_, C_, dst, dtotal = B_.to(F32), C_.to(F32), dst.to(F32), dtotal.to(F32)
+    cum = torch.cumsum(a.to(torch.float64), dim=2)  # (B,nc,Q,H)
+    total = cum[:, :, -1]
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=dev).tril()[None, None, :, :, None]
+    zero = torch.zeros((), dtype=F32, device=dev)
+    L = torch.where(tri, torch.exp((cum[:, :, :, None, :] - cum[:, :, None, :, :]).to(F32)), zero)
+    M = torch.einsum("bcihn,bcjhn->bcijh", C_, B_) * L  # (B,nc,Q,Q,H): [i, j]
+    u = xf * dt[..., None]
+    dM = torch.where(tri, torch.einsum("bcihp,bcjhp->bcijh", dyf, u), zero)
+    du = torch.einsum("bcijh,bcihp->bcjhp", M, dyf)
+    g = torch.exp((total[:, :, None, :] - cum).to(F32))  # (B,nc,Q,H)
+    w = dt * g
+    sB = torch.einsum("bchpn,bcqhn->bcqhp", dst, B_)  # dst·B_q
+    dw = (xf * sB).sum(-1)
+    dx = du * dt[..., None] + w[..., None] * sB
+    ddt = (du * xf).sum(-1) + g * dw
+    dS = dM * L
+    dC = torch.einsum("bcijh,bcjhn->bcihn", dS, B_)
+    dB = torch.einsum("bcijh,bcihn->bcjhn", dS, C_) + w[..., None] * torch.einsum("bchpn,bcqhp->bcqhn", dst, xf)
+    G = dM * M
+    dw_w = dw * w
+    dcum = G.sum(3) - G.sum(2) - dw_w  # rows i minus columns i
+    dcum[:, :, -1] += dtotal + dw_w.sum(2)
+    da = torch.flip(torch.cumsum(torch.flip(dcum.to(torch.float64), (2,)), 2), (2,))
+    return dx.to(x.dtype), ddt, da.to(F32), dB, dC
+
+
+def ssd_intra_bwd(x, dt, a, B_, C_, dy, dst, dtotal):
+    """B6's gradient; inputs and results as :func:`ssd_intra_bwd_plain`.
+
+    CUDA: one launch of ``csrc/ssd_chunk_bwd.cu``; x and dy in the same type
+    (f32 or bf16), every other input f32, all contiguous, Q <= 128."""
+    _check_shapes(x, dt, a, B_, C_)
+    if cuda_lib.on_cpu(x, dt, a, B_, C_, dy, dst, dtotal):
+        cuda_lib.COUNTS["plain:ssd_intra_bwd"] += 1
+        return ssd_intra_bwd_plain(x, dt, a, B_, C_, dy, dst, dtotal)
+    Bb, nc, Q, H, P = x.shape
+    N = B_.shape[-1]
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"ssd_intra_bwd: dy must be {tuple(x.shape)} {x.dtype}, got "
+                         f"{tuple(dy.shape)} {dy.dtype}")
+    if tuple(dst.shape) != (Bb, nc, H, P, N) or tuple(dtotal.shape) != (Bb, nc, H):
+        raise ValueError(f"ssd_intra_bwd: dst must be {(Bb, nc, H, P, N)} and dtotal {(Bb, nc, H)}, "
+                         f"got {tuple(dst.shape)} and {tuple(dtotal.shape)}")
+    _check_dtypes("ssd_intra_bwd", x, ("dt", dt), ("a", a), ("B_", B_), ("C_", C_),
+                  ("dst", dst), ("dtotal", dtotal))
+    cuda_lib.require_cuda(x, dt, a, B_, C_, dy, dst, dtotal, name="ssd_intra_bwd")
+    if Q > MAX_CHUNK:
+        raise ValueError(f"ssd_intra_bwd: chunk length {Q} exceeds the kernel's {MAX_CHUNK}")
+    dev = x.device
+    dx = torch.empty_like(x)
+    ddt = torch.empty((Bb, nc, Q, H), dtype=F32, device=dev)
+    da = torch.empty_like(ddt)
+    dB = torch.empty((Bb, nc, Q, H, N), dtype=F32, device=dev)
+    dC = torch.empty_like(dB)
+    lib = _bwd_lib()
+    with torch.cuda.device(dev):
+        rc = lib.ssd_bwd_launch(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), dt.data_ptr(), a.data_ptr(), B_.data_ptr(),
+            C_.data_ptr(), dy.data_ptr(), dst.data_ptr(), dtotal.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), da.data_ptr(), dB.data_ptr(), dC.data_ptr(), Bb, nc, Q, H, P, N,
+            torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check(rc, "ssd_intra_bwd", lib.ssd_bwd_error_string)
+    cuda_lib.COUNTS["launch:ssd_intra_bwd"] += 1
+    return dx, ddt, da, dB, dC
+
+
+class SsdIntra(torch.autograd.Function):
+    """B6 with its gradient: the forward is one launch of the forward kernel
+    (or its plain version on the CPU), the backward one of the gradient
+    kernel (or :func:`ssd_intra_bwd_plain`). Inputs are kept, nothing else:
+    the backward recomputes ``cum``, ``L`` and ``C·Bᵀ``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, B_, C_):
+        ctx.save_for_backward(x, dt, a, B_, C_)
+        return _forward(x, dt, a, B_, C_)
+
+    @staticmethod
+    def backward(ctx, dy, dst, dtotal):
+        x, dt, a, B_, C_ = ctx.saved_tensors
+        return ssd_intra_bwd(x, dt, a, B_, C_, dy.to(x.dtype).contiguous(), dst.contiguous(),
+                             dtotal.contiguous())

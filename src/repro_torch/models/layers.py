@@ -1,4 +1,5 @@
-"""Shared model layers (torch), the parts the SSM family needs.
+"""Shared model layers (torch), the parts the SSM family needs, and the
+loss.
 
 Conventions, as in the JAX package: activations flow in a compute dtype
 (bf16 by default), parameters live in f32, matrices are ``(d_in, d_out)``
@@ -33,3 +34,20 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Te
     xf = x.to(F32)
     y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (y * (1.0 + scale.to(F32))).to(x.dtype)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                 z_loss: float = 0.0) -> torch.Tensor:
+    """Stable cross-entropy in f32; logits (..., V), labels (...) of any
+    integer type (the token pipeline yields int32; the gather takes an int64
+    copy). With ``mask``, the masked mean over at least one position."""
+    lf = logits.to(F32)
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.to(torch.int64)[..., None])[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * lse**2
+    if mask is not None:
+        loss = loss * mask
+        return loss.sum() / torch.clamp(mask.sum(), min=1)
+    return loss.mean()

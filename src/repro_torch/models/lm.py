@@ -13,7 +13,9 @@ The entry points (``init_params``, ``init_cache``) build on the card
 unless the caller asks for the CPU (``device="cpu"``); without a card,
 ``device="cuda"`` raises rather than run the plain versions in its place.
 
-Serving (``prefill``, ``decode_step``) runs without autograd. With grad
+Training runs ``forward`` under autograd (``training.steps``), with each
+block checkpointed (``remat``). Serving (``prefill``, ``decode_step``) runs
+without autograd. With grad
 mode off every layer keeps one copy of its matrices (and the model one of
 its embedding) in the compute dtype, made once (``ssm.cast_once``); the
 values equal JAX's per-call ``astype``.
@@ -28,6 +30,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.core.decode_torch import resolve_device
 from repro_torch.models import ssm as S
@@ -45,7 +48,7 @@ def _require_ssm(cfg) -> None:
         why = _NOT_PORTED.get(cfg.family, "its layers")
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet ({why}); it comes with "
-            f"ROADMAP Queue A, slice 6b: LM families, training and checkpoints"
+            f"ROADMAP Queue A, slice 6b part 2: the other LM families and their training"
         )
 
 
@@ -102,13 +105,43 @@ def _head(model: Mamba2LM, x):
     return x @ model.head_weight(x.dtype)
 
 
-def forward(model: Mamba2LM, cfg, tokens, *, dtype=BF16):
+#: matmul outputs a ``"dots"`` block keeps (the 2-D products ``x @ W``; as
+#: JAX's ``dots_with_no_batch_dims_saveable``, batched products are recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _block(layer, x, cfg):
+    return layer(x, cfg)[0]
+
+
+def forward(model: Mamba2LM, cfg, tokens, *, remat: bool = True, remat_policy: str = "nothing",
+            chunk: int = 1024, dtype=BF16):
     """Training/prefill forward over ``tokens`` (B, S). Returns (logits
-    (B, S, V), aux loss 0.0). No remat: the port has no training step yet."""
+    (B, S, V), aux loss 0.0).
+
+    With ``remat`` and grad mode on, each block runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are dropped
+    and recomputed in the backward, so B6's forward runs twice a layer a
+    step. ``remat_policy`` ``"nothing"`` keeps only each block's input,
+    ``"dots"`` also the outputs of its 2-D matrix products. ``chunk`` (the
+    attention block size) is unused by the SSM family."""
     _require_ssm(cfg)
+    if remat_policy not in ("nothing", "dots"):
+        raise ValueError(f"remat_policy must be 'nothing' or 'dots', got {remat_policy!r}")
     x = _embed(model, tokens, dtype)
+    ckpt = remat and torch.is_grad_enabled()
     for layer in model.layers:
-        x, _ = layer(x, cfg)
+        if not ckpt:
+            x, _ = layer(x, cfg)
+            continue
+        kw = {}
+        if remat_policy == "dots":
+            kw["context_fn"] = lambda: create_selective_checkpoint_contexts(_dots_policy)
+        x = checkpoint(_block, layer, x, cfg, use_reentrant=False, **kw)
     x = rmsnorm(x, model.norm_f, cfg.norm_eps)
     return _head(model, x), 0.0
 

@@ -1,0 +1,92 @@
+"""AdamW and its schedule, the port of ``src/repro/training/optimizer.py``:
+clipping by the global norm, bias correction from the step, weight decay on
+every parameter, linear warmup then cosine decay to ``min_lr_frac``.
+
+The state is ``{"m": {name: f32}, "v": {name: f32}, "step": int32}``, keyed
+by the model's parameter names, on the parameters' device. The update runs
+in place under ``no_grad`` as ``torch._foreach_*`` calls (a handful of
+launches for all parameters); ``torch.optim.AdamW`` is not used, since its
+clipping, schedule and decay are not the reference's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+F32 = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_frac: float = 0.1
+
+
+def schedule(c: AdamWConfig, step) -> torch.Tensor:
+    """Linear warmup + cosine decay; ``step`` an integer tensor (or int),
+    the learning rate an f32 tensor on its device."""
+    step = torch.as_tensor(step).to(F32)
+    warm = torch.clamp(step / max(c.warmup_steps, 1), max=1.0)
+    t = torch.clamp((step - c.warmup_steps) / max(c.total_steps - c.warmup_steps, 1), 0.0, 1.0)
+    cos = 0.5 * (1 + torch.cos(math.pi * t))
+    return c.lr * warm * (c.min_lr_frac + (1 - c.min_lr_frac) * cos)
+
+
+def adamw_init(params: dict) -> dict:
+    """Zero moments for ``params`` ({name: tensor}) and step 0."""
+    dev = next(iter(params.values())).device
+    return {
+        "m": {k: torch.zeros(p.shape, dtype=F32, device=p.device) for k, p in params.items()},
+        "v": {k: torch.zeros(p.shape, dtype=F32, device=p.device) for k, p in params.items()},
+        "step": torch.zeros((), dtype=torch.int32, device=dev),
+    }
+
+
+def global_norm(tree: dict) -> torch.Tensor:
+    """sqrt of the sum of squares over every leaf, in f32."""
+    norms = torch._foreach_norm([g.to(F32) for g in tree.values()])
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+@torch.no_grad()
+def adamw_update(c: AdamWConfig, grads: dict, opt: dict, params: dict):
+    """One AdamW step; returns (params, new_opt, metrics).
+
+    ``params`` ({name: tensor}) and the moments of ``opt`` are updated in
+    place; the returned ``opt`` holds those moments and a new step."""
+    step = opt["step"] + 1
+    gn = global_norm(grads)
+    lr = schedule(c, step)
+    stepf = step.to(F32)
+    b1c = 1 - c.b1**stepf
+    b2c = 1 - c.b2**stepf
+    names = list(params)
+    ps = [params[k] for k in names]
+    gs = [grads[k].to(F32) for k in names]
+    ms = [opt["m"][k] for k in names]
+    vs = [opt["v"][k] for k in names]
+    if c.grad_clip:
+        gs = torch._foreach_mul(gs, torch.clamp(c.grad_clip / torch.clamp(gn, min=1e-9), max=1.0))
+    torch._foreach_mul_(ms, c.b1)
+    torch._foreach_add_(ms, torch._foreach_mul(gs, 1 - c.b1))
+    torch._foreach_mul_(vs, c.b2)
+    torch._foreach_add_(vs, torch._foreach_mul(torch._foreach_mul(gs, 1 - c.b2), gs))
+    den = torch._foreach_div(vs, b2c)
+    torch._foreach_sqrt_(den)
+    torch._foreach_add_(den, c.eps)
+    upd = torch._foreach_div(ms, b1c)
+    torch._foreach_div_(upd, den)
+    torch._foreach_add_(upd, torch._foreach_mul(ps, c.weight_decay))
+    torch._foreach_mul_(upd, lr)
+    torch._foreach_sub_(ps, upd)
+    return params, {"m": opt["m"], "v": opt["v"], "step": step}, {"grad_norm": gn, "lr": lr}

@@ -11,7 +11,12 @@ where JAX is not installed; on a machine with an NVIDIA GPU:
 The kernels are built from src/repro_torch/kernels/csrc at first use. The
 banded-alignment DP's cases alone:
 
-    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_kernels.py -k align"""
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_kernels.py -k align
+
+B6's backward kernel and the training step on the card:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_kernels.py -k "bwd or train"
+"""
 
 import dataclasses
 import functools
@@ -542,9 +547,6 @@ def test_ssd_intra_kernel_refuses_what_it_cannot_take(cuda):
     from repro_torch.kernels.ssd_chunk import ssd_intra
 
     x, dt, a, B, C = ssd_inputs((1, 1, 16, 2, 8, 8), torch.float32, "mild", cuda)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ssd_intra(x.requires_grad_(), dt, a, B, C)
-    x = x.detach()
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         ssd_intra(x.half(), dt, a, B, C)
     with pytest.raises(ValueError, match="must be float32"):
@@ -554,6 +556,129 @@ def test_ssd_intra_kernel_refuses_what_it_cannot_take(cuda):
     long = ssd_inputs((1, 1, 129, 2, 8, 8), torch.float32, "mild", cuda)
     with pytest.raises(ValueError, match="exceeds"):
         ssd_intra(*long)
+
+
+def ssd_bwd_grads(shape, dtype, dev, seed=0):
+    """dy (x's dtype), dst and dtotal of the backward kernel."""
+    Bb, nc, Q, H, P, N = shape
+    g = torch.Generator(device=dev).manual_seed(seed + 1000)
+    dy = torch.randn((Bb, nc, Q, H, P), generator=g, device=dev).to(dtype)
+    dst = torch.randn((Bb, nc, H, P, N), generator=g, device=dev)
+    dtot = torch.randn((Bb, nc, H), generator=g, device=dev)
+    return dy, dst, dtot
+
+
+SSD_BWD_SHAPES = dict(SSD_SHAPES, train=SSD_SHAPES["prefill"])
+SSD_BWD_CASES = [("train", torch.bfloat16, "mild"), ("train", torch.float32, "mild"),
+                 ("train", torch.float32, "large"), ("train", torch.bfloat16, "large"),
+                 ("q2", torch.float32, "mild"), ("q17", torch.float32, "mild"),
+                 ("q127", torch.float32, "large"), ("zamba2", torch.float32, "mild"),
+                 ("zamba2", torch.bfloat16, "mild"), ("ragged", torch.float32, "mild"),
+                 ("odd", torch.bfloat16, "mild"), ("odd1", torch.float32, "mild")]
+
+
+@pytest.mark.parametrize("name,dtype,decay", SSD_BWD_CASES,
+                         ids=[f"{n}-{str(d)[6:]}-{c}" for n, d, c in SSD_BWD_CASES])
+def test_ssd_intra_bwd_kernel_matches_plain(cuda, name, dtype, decay):
+    """B6's backward kernel against ssd_intra_bwd_plain on the card: chunks
+    of 2, 17, 127 and 128 steps, N = 64, 128 and 200, bf16 and f32 x, and
+    large decay (exp of the upper triangle overflows). The f32 gradients
+    within rtol 1e-5 and 1e-5·max|grad| (sums of up to Q·N products in
+    another order); dx in bf16 within one bf16 ulp (rtol 8e-3); all finite."""
+    from repro_torch.kernels.ssd_chunk import ssd_intra_bwd, ssd_intra_bwd_plain
+
+    args = ssd_inputs(SSD_BWD_SHAPES[name], dtype, decay, cuda) + ssd_bwd_grads(SSD_BWD_SHAPES[name], dtype, cuda)
+    DT.reset_trace_counts()
+    got = ssd_intra_bwd(*args)
+    assert DT.trace_counts() == {"launch:ssd_intra_bwd": 1}
+    want = ssd_intra_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert got[0].dtype == dtype and all(t.dtype == torch.float32 for t in got[1:])
+    for nm, a, b in zip(("dx", "ddt", "da", "dB", "dC"), got, want):
+        assert bool(torch.isfinite(a.float()).all()), nm
+        rtol = 8e-3 if a.dtype == torch.bfloat16 else 1e-5
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=1e-5 * float(b.float().abs().max()),
+                                   msg=lambda m, nm=nm: f"{nm}: {m}")
+
+
+def test_ssd_intra_bwd_kernel_is_deterministic(cuda):
+    """No atomics: two launches on the same inputs give the same bits."""
+    from repro_torch.kernels.ssd_chunk import ssd_intra_bwd
+
+    shape = SSD_BWD_SHAPES["train"]
+    args = ssd_inputs(shape, torch.bfloat16, "mild", cuda, seed=3) + ssd_bwd_grads(shape, torch.bfloat16, cuda)
+    for a, b in zip(ssd_intra_bwd(*args), ssd_intra_bwd(*args)):
+        assert torch.equal(a, b)
+
+
+def test_ssd_intra_bwd_kernel_refuses_what_it_cannot_take(cuda):
+    from repro_torch.kernels.ssd_chunk import ssd_intra_bwd
+
+    shape = (1, 1, 16, 2, 8, 8)
+    x, dt, a, B, C = ssd_inputs(shape, torch.float32, "mild", cuda)
+    dy, dst, dtot = ssd_bwd_grads(shape, torch.float32, cuda)
+    with pytest.raises(ValueError, match="dy must be"):
+        ssd_intra_bwd(x, dt, a, B, C, dy.bfloat16(), dst, dtot)
+    with pytest.raises(ValueError, match="dst must be"):
+        ssd_intra_bwd(x, dt, a, B, C, dy, dst[..., :4], dtot)
+    with pytest.raises(ValueError, match="must be float32"):
+        ssd_intra_bwd(x, dt, a, B, C, dy, dst.double(), dtot)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_intra_bwd(x, dt, a, B, C, dy.transpose(3, 4).contiguous().transpose(3, 4), dst, dtot)
+    with pytest.raises(ValueError, match="all be on the CPU or all on CUDA"):
+        ssd_intra_bwd(x, dt, a, B, C, dy.cpu(), dst, dtot)
+
+
+def test_ssd_gradients_on_card_match_cpu(cuda):
+    """Gradients of ops.ssd (B6 forward and backward kernels and the
+    recurrence under autograd) for x, dt, A, B, C and state0 on the card
+    against the same on the CPU (plain versions): a ragged last chunk,
+    within 1e-4·max|grad| (f32 sums in another order on each device, and
+    the forward's 3xTF32 products)."""
+    g = torch.Generator().manual_seed(6)
+    Bb, S, H, P, N = 2, 300, 8, 64, 128
+    ins = [torch.randn((Bb, S, H, P), generator=g),
+           torch.nn.functional.softplus(torch.randn((Bb, S, H), generator=g) - 2.0),
+           -torch.linspace(1.0, 16.0, H),
+           torch.randn((Bb, S, H, N), generator=g) * 0.3,
+           torch.randn((Bb, S, H, N), generator=g) * 0.3,
+           torch.randn((Bb, H, P, N), generator=g) * 0.1]
+    gy, gs = torch.randn((Bb, S, H, P), generator=g), torch.randn((Bb, H, P, N), generator=g)
+
+    def grads(dev):
+        t = [x.to(dev).requires_grad_() for x in ins]
+        y, s = ops.ssd(*t[:5], 128, t[5])
+        return torch.autograd.grad((y * gy.to(dev)).sum() + (s * gs.to(dev)).sum(), t)
+
+    want = grads("cpu")
+    DT.reset_trace_counts()
+    got = grads(cuda)
+    assert DT.trace_counts() == {"launch:ssd_intra": 1, "launch:ssd_intra_bwd": 1}
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One make_train_step of a 2-layer cut of mamba2-370m at full width
+    (d_model 1024, vocab 50280; 2 x 256 tokens, remat on, f32 activations,
+    matmul TF32 off) on the card against the CPU: loss, grad_norm and every
+    leaf of the state within tests/train_cases.py's bounds. The card's path
+    launches B6 forward 2 x 2 times and backward 2 times, no plain version."""
+    from repro_torch.configs import get_arch
+
+    from train_cases import compare_step, cut_batch, cut_models, one_step
+
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cut, m_dev, m_cpu = cut_models(get_arch("mamba2-370m"), 2, cuda, seed=1)
+        batch = cut_batch(cut, 2, 256, seed=2)
+        DT.reset_trace_counts()
+        card = one_step(cut, m_dev, batch, cuda)
+        assert DT.trace_counts() == {"launch:ssd_intra": 4, "launch:ssd_intra_bwd": 2}
+        compare_step(card, one_step(cut, m_cpu, batch, "cpu"))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
 
 
 def test_ssd_on_card_matches_cpu(cuda):

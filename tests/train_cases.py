@@ -1,0 +1,102 @@
+"""One training step of the port on the card held against the same step on
+the CPU, shared by tests/test_torch_kernels.py and chip_smoke.py (imports
+only the port, so it runs where JAX is not installed).
+
+The step runs with f32 activations (``f32_forward``), so the card and the
+CPU differ only by the order of f32 sums, not by where bf16 rounds. The
+bounds, per leaf of the JAX package's layout (``train_state_to_reference``):
+
+* loss and grad_norm within 1e-4 relative;
+* m and v within 1e-4·max|leaf| (after one step m = (1-b1)·ĝ and
+  v = (1-b2)·ĝ², ĝ the clipped gradient);
+* each parameter within 1e-4·max|leaf| plus AdamW's own amplification of
+  the gradient's error: the first step moves p by lr·ĝ/(|ĝ| + eps), whose
+  slope in ĝ is eps/(|ĝ| + eps)², so a gradient error of up to
+  τ = 1e-4·max|ĝ| moves p by up to lr·min(2, τ·eps/(|ĝ| + eps)²). Where
+  |ĝ| is many eps, that term vanishes; near ĝ = 0 the sign decides.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint.checkpoint import _flatten
+from repro_torch.convert import train_state_to_reference
+from repro_torch.models import lm
+from repro_torch.training import steps as TS
+from repro_torch.training.optimizer import AdamWConfig, adamw_init
+
+TOL = 1e-4
+ADAMW = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8)
+
+
+@contextlib.contextmanager
+def f32_forward():
+    """The train step's forward in f32 activations (its default is bf16)."""
+    orig = lm.forward
+    lm.forward = functools.partial(orig, dtype=torch.float32)
+    try:
+        yield
+    finally:
+        lm.forward = orig
+
+
+def cut_batch(cfg, batch: int, seq: int, seed: int) -> dict:
+    """(tokens, labels) int32 from a seeded numpy draw, as the pipeline
+    yields them."""
+    t = np.random.default_rng(seed).integers(0, cfg.vocab, (batch, seq + 1)).astype(np.int32)
+    return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+
+def one_step(cfg, model, batch: dict, dev) -> tuple[dict, dict]:
+    """One ``make_train_step`` (remat on, f32 activations) on ``dev`` from
+    zero AdamW state; returns (metrics as floats, the state as flat
+    {name: host array} in the JAX package's layout)."""
+    opts = TS.TrainOptions(adamw=ADAMW)
+    opt = adamw_init(dict(model.named_parameters()))
+    with f32_forward():
+        model, opt, m = TS.make_train_step(cfg, opts)(
+            model, opt, {k: torch.as_tensor(v).to(dev) for k, v in batch.items()})
+    return {k: float(v) for k, v in m.items()}, dict(_flatten(train_state_to_reference(cfg, model, opt)))
+
+
+def compare_step(card: tuple[dict, dict], cpu: tuple[dict, dict]) -> dict:
+    """Hold the card's step against the CPU's (bounds in the module
+    docstring); returns the errors, raises AssertionError past a bound."""
+    (mc, sc), (mp, sp) = card, cpu
+    out = {"tol": TOL, "loss": [mc["loss"], mp["loss"]], "grad_norm": [mc["grad_norm"], mp["grad_norm"]]}
+    for k in ("loss", "grad_norm"):
+        assert abs(mc[k] - mp[k]) <= TOL * abs(mp[k]), (k, mc[k], mp[k])
+    assert sorted(sc) == sorted(sp)
+    lr, eps, b1 = mp["lr"], ADAMW.eps, ADAMW.b1
+    worst = {}
+    for k in sp:
+        if k == "opt/step":
+            assert int(sc[k]) == int(sp[k]) == 1
+            continue
+        a, b = np.asarray(sc[k], np.float64), np.asarray(sp[k], np.float64)
+        bound = TOL * np.abs(b).max()
+        if k.startswith("params/"):
+            g = np.asarray(sp["opt/m/" + k[len("params/"):]], np.float64) / (1 - b1)
+            tau = TOL * np.abs(g).max()
+            bound = bound + lr * np.minimum(2.0, tau * eps / (np.abs(g) + eps) ** 2)
+        err = np.abs(a - b)
+        worst[k] = float(err.max() / max(np.abs(b).max(), 1e-30))
+        assert bool((err <= bound).all()), f"{k}: max err {float(err.max())}, over its bound at {int((err > bound).sum())} elements"
+    out["max_rel_err_by_leaf"] = dict(sorted(worst.items(), key=lambda kv: -kv[1])[:6])
+    return out
+
+
+def cut_models(cfg, layers: int, dev, seed: int):
+    """A ``layers``-deep cut of ``cfg`` at full width on ``dev`` and the same
+    weights on the CPU."""
+    cut = dataclasses.replace(cfg, n_layers=layers)
+    m_dev = lm.init_params(torch.Generator(device=dev).manual_seed(seed), cut, device=dev)
+    m_cpu = lm.init_params(torch.Generator().manual_seed(seed), cut, device="cpu")
+    m_cpu.load_state_dict({k: v.cpu() for k, v in m_dev.state_dict().items()})
+    return cut, m_dev, m_cpu
