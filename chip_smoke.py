@@ -2,8 +2,9 @@
 SAGe_Read, SAGe_ISP (streams, the exact-match filter, the store-backed
 mapper), the LM token pipeline, mamba2-370m serving store-derived prompts,
 the multi-tenant SageServer frontend, the self-healing store (parity
-reconstruction, scrub, repair) and mamba2-370m trained on SAGe k-mer tokens
-with checkpoints, through the hand-written CUDA kernels,
+reconstruction, scrub, repair), mamba2-370m trained on SAGe k-mer tokens
+with checkpoints, and qwen2-1.5b (dense) and zamba2-2.7b (hybrid) served
+and trained at full width, through the hand-written CUDA kernels,
 checked against the sequential numpy encoder and decoder, the plain torch
 versions and the CPU.
 
@@ -23,6 +24,9 @@ Phases, each printing one JSON line:
            main path's shapes, timed with CUDA events beside its bound
            (device time, and the call time that includes launch overhead)
            and the launch floor (a near-empty kernel timed the same way);
+           B6 and its backward also at the hybrid phase's train shape
+           (zamba2-2.7b: 8 x 512 tokens, 80 heads, N = 64), and B6's decode
+           route at its decode step (8 prompts, Q = 1), timed;
            the launch plans of B1 and B3 (grid, threads, shared memory, and
            registers and spills from this run's build) and of B2 and B5
            (grid, shared memory, global scratch);
@@ -72,7 +76,7 @@ Phases, each printing one JSON line:
            twice); prompts against the CPU; a 4-layer cut's f32 and bf16
            prefill logits against the CPU; chunked prefill against
            step-by-step decode on that cut; time to first token, decode
-           ms per step, peak memory, profiles of a prefill and 8 decode steps
+           ms per step, peak memory, profiles of a prefill and 4 decode steps
   serve    SageServer over a card store and the lm phase's engine: one burst
            of 64 overlapping 4-block reads (2bit / kmer / onehot), 4 kmer
            streams of 256 blocks, 2 consensus requests and 8 generates
@@ -104,6 +108,29 @@ Phases, each printing one JSON line:
            full-width cut's step (f32 activations) against the CPU, every
            leaf within tests/train_cases.py's bounds; step ms, tokens/s,
            peak memory, checkpoint bytes, a profile of one step
+  dense    qwen2-1.5b at full width (28 layers, d_model 1536, 12 / 2 heads
+           of 128, vocab 151936, tied; weights from a seeded generator on
+           the card): 8 prompts from an Illumina block through a fused kmer
+           session (k = 8; B1, B5), two greedy generate calls (512-token
+           slots, 64 new tokens) held against each other and the CPU's
+           prompts; TTFT, decode ms a step, tokens/s, peak memory, profiles
+           of a prefill and 4 decode steps with the device time inside the
+           attention; a 4-layer cut's f32 and bf16 prefill (logits, K and
+           V) against the CPU; chunked forward and prefill against
+           step-by-step decode on the cut; 4 training steps of 8 x 512
+           k-mer tokens through the Trainer (no checkpoint: ~18 GB) on
+           tiles 3100-3101, remat, bf16, AdamW: every batch against refdec,
+           the loss falls, launch counts, a profiled step; a 2-layer cut's
+           train step against the CPU (tests/train_cases.py); the
+           attention beside one scaled_dot_product_attention call at the
+           train shape, forward and forward + backward
+  hybrid   zamba2-2.7b at full width (54 Mamba2 layers in 9 groups of 6,
+           d_model 2560, one shared attention block of 32 heads of 80):
+           the same serving run (B6 once a Mamba2 layer a decode step), the
+           same checks on a cut of one group and the shared block, 3
+           training steps on tiles 3200-3201 (B6 forward twice and backward
+           once a Mamba2 layer a step), the cut's train step and the
+           attention against the CPU and the library
 Then the kernel table as one JSON line (B1's, B2's, B3's and B5's rows
 with their launch `plan`, B1's and B3's with the launch floor), the card's
 name and power limit,
@@ -113,6 +140,7 @@ and the final {"ok": true, ...} line. Any failure raises (exit code != 0).
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import io
 import json
@@ -161,6 +189,7 @@ try:
     from repro_torch.kernels.reformat import kmer_plan
     from repro_torch.kernels.sage_decode import launch_plan, unpack_plan
     from repro_torch.kernels.ssd_chunk import ssd_intra, ssd_intra_bwd, ssd_intra_bwd_plain, ssd_intra_plain
+    from repro_torch.models import layers as LAYERS
     from repro_torch.models import lm
     from repro_torch.serving import SageServer, ServeConfig, ServingEngine, SessionPool, prompts_from_store
     from repro_torch.testing import FaultPlan, corrupt_extents, inject
@@ -194,7 +223,7 @@ WARM_READS = 5  # reads in each profiled warm-read window
 KMER_K = 4
 FMTS = ("2bit", "kmer", "onehot")
 LM_ARCH = "mamba2-370m"  # full width; the card-vs-CPU and duality checks cut its depth
-LM = dict(seed=0, prompts=8, cut_layers=4, duality_tokens=160, prefill_runs=3, profile_steps=8)
+LM = dict(seed=0, prompts=8, cut_layers=4, duality_tokens=160, prefill_runs=2, decode_steps=16, profile_steps=4)
 LM_BLOCK = 3 * GROUP  # the lm phase's prompts come from this block, through a store of its own
 # B6 against its plain version, (rtol, atol). bf16 y: both sides round an f32
 # sum once, so they differ by at most one bf16 ulp (2^-7 of the value) past
@@ -225,6 +254,24 @@ HEAL = dict(tiles=128, parity_group=4, damaged=(5, 100), flip_block=300, repair_
 # fresh trainer and pipeline; a 2-layer full-width cut's step against the CPU
 TRAIN = dict(first_tile=3072, tiles=2, batch=8, seq=512, steps=8, ckpt_at=4, seed=5, lr=2e-3, warmup=2,
              cut_layers=2, cut_batch=2, resume_rtol=1e-3)
+# the dense and hybrid phases: qwen2-1.5b and zamba2-2.7b at full width,
+# weights from a seeded generator on the card. Each serves 8 prompts from an
+# Illumina block of a store of its own (512-token slots, 64 new tokens) and
+# trains on 8 x 512 k-mer tokens a step from two tiles of the Illumina layout
+# no earlier phase touched (qwen2 tiles 3100-3101, blocks 24800-24815;
+# zamba2 tiles 3200-3201, blocks 25600-25615), with no checkpoint (a save
+# would be ~18 GB); the CPU checks run on a depth cut (zamba2's: one group
+# of 6 Mamba2 layers and the shared block)
+FAMILY = {
+    "dense": dict(arch="qwen2-1.5b", seed=11, prompt_block=26624, first_tile=3100, steps=4, cut_layers=4,
+                  train_cut_layers=2),
+    "hybrid": dict(arch="zamba2-2.7b", seed=12, prompt_block=26656, first_tile=3200, steps=3, cut_layers=6,
+                   train_cut_layers=6),
+}
+FAMILY_RUN = dict(prompts=8, tiles=2, batch=8, seq=512, lr=2e-3, warmup=2, cpu_prompts=2, duality_tokens=160,
+                  duality_chunk=64, prefill_runs=2, decode_steps=8, profile_steps=4, cut_batch=2, cut_seq=128,
+                  attn_iters=20)
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (bf16 products, f32 sums)
 # B6's backward against its plain version, (rtol, atol as a share of the
 # plain gradient's largest value): f32 sums of up to Q·N products in
 # another order; dx in bf16 within one bf16 ulp
@@ -293,14 +340,39 @@ def copy_overlap_us(events) -> tuple[float, float]:
     return sum(b - a for a, b in copies), both
 
 
-def profile_window(fn, focus: str = "") -> dict:
+@contextlib.contextmanager
+def annotated(ranges):
+    """Wrap each ``(module, name)`` function in ``torch.profiler.record_function(name)``
+    for the duration, so a profile can attribute device time to it."""
+    from torch.profiler import record_function
+
+    saved = [(mod, name, getattr(mod, name)) for mod, name in ranges]
+
+    def wrap(fn, name):
+        def run(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return run
+
+    for mod, name, fn in saved:
+        setattr(mod, name, wrap(fn, name))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def profile_window(fn, focus: str = "", ranges=()) -> dict:
     """Run ``fn(0)`` on the host clock and ``fn(1)``, the same work, under
     torch.profiler: the wall time of the first, the device time of every
     kernel and copy by name in the second, the device busy share (device
     time over the unprofiled wall time; null when the profiler saw no device
     activity), how much of the host->device copy time overlapped a kernel,
-    and with ``focus`` the device time and share of the kernels whose name
-    holds it."""
+    with ``focus`` the device time and share of the kernels whose name
+    holds it, and with ``ranges`` ((module, function name) pairs, wrapped
+    in ``record_function`` for the profiled run only) the device time of
+    the kernels launched inside each function and its share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -309,11 +381,12 @@ def profile_window(fn, focus: str = "") -> dict:
     fn(0)
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with annotated(ranges), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn(1)
         torch.cuda.synchronize()
+    names = {name for _mod, name in ranges}  # their ranges also show on the device's timeline: not kernels
     rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
+                   if e.device_type == DeviceType.CUDA and e.key not in names), key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
     htod_us, htod_under_kernel_us = copy_overlap_us(prof.events())
     out = {"wall_ms": wall_us / 1e3, "device_ms": busy_us / 1e3,
@@ -324,6 +397,11 @@ def profile_window(fn, focus: str = "") -> dict:
         f_us = sum(t for n, t, _c in rows if focus in n)
         out.update({f"{focus}_ms": f_us / 1e3, f"{focus}_share": f_us / busy_us if busy_us else None,
                     "device_kernels": sum(c for _n, _t, c in rows)})
+    for name in names:  # the kernels launched inside each call of the function, from the host's events
+        r_us = sum(e.device_time_total for e in prof.events()
+                   if e.name == name and e.device_type == DeviceType.CPU)
+        out[f"{name}_ms"] = r_us / 1e3
+        out[f"{name}_share"] = r_us / busy_us if busy_us else None
     return out
 
 
@@ -785,7 +863,7 @@ def lm_phase(dev, cfg) -> tuple[int, ServingEngine]:
         torch.cuda.synchronize()
         ttft.append((time.perf_counter() - t0) * 1e3)
     cur = torch.argmax(logits[:, -1].float(), dim=-1)[:, None]
-    steps = sc.max_new - 1
+    steps = LM["decode_steps"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for t in range(steps):
@@ -1255,7 +1333,7 @@ def train_phase(dev, cfg, src: SageFile, oracle: "Oracle") -> int:
     cut, m_dev, m_cpu = cut_models(cfg, tr["cut_layers"], dev, seed=tr["seed"] + 2)
     cb = cut_batch(cut, tr["cut_batch"], tr["seq"], seed=tr["seed"])
     c0 = time.perf_counter()
-    vs_cpu = compare_step(one_step(cut, m_dev, cb, dev), one_step(cut, m_cpu, cb, "cpu"))
+    vs_cpu = compare_step(one_step(cut, m_dev, cb, dev), one_step(cut, m_cpu, cb, "cpu"), dev)
     vs_cpu["seconds"] = time.perf_counter() - c0
     del m_dev, m_cpu
 
@@ -1272,6 +1350,329 @@ def train_phase(dev, cfg, src: SageFile, oracle: "Oracle") -> int:
          card_vs_cpu=vs_cpu, seconds=time.perf_counter() - t_phase)
     shutil.rmtree(ckdir)
     return path_n["ssd_intra_bwd"]
+
+
+def sdpa(q, k, v):
+    """One ``F.scaled_dot_product_attention`` call (causal, GQA) on (B, S,
+    H, Dh) tensors: the library's attention, timed as a yardstick only."""
+    o = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True, enable_gqa=True)
+    return o.transpose(1, 2)
+
+
+def attention_yardstick(cfg, dev, seed: int) -> dict:
+    """The port's attention (``causal_flash``: plain torch ops, f32 scores)
+    at the train shape (8 x 512 tokens, bf16 q, k, v, causal, GQA, one KV
+    block as TrainOptions' chunk 1024 gives) beside one
+    ``scaled_dot_product_attention`` call on the same tensors: device ms of
+    the forward and of forward + backward, the outputs' max abs difference
+    (bf16 tolerance 5e-2), and the bound: q, k, v (and dout) read once, the
+    outputs written once, over HBM_BYTES_PER_S; the causal products (QKᵀ
+    and PV forward, five more backward, each S(S+1)/2·Dh multiply-adds a
+    head) over BF16_OPS_PER_S."""
+    run = FAMILY_RUN
+    B, S, H, KV, Dh = run["batch"], run["seq"], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, dout = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+                     for shape in ((B, S, H, Dh), (B, S, KV, Dh), (B, S, KV, Dh), (B, S, H, Dh)))
+    out, lib = LAYERS.causal_flash(q, k, v, 1024), sdpa(q, k, v)
+    err = max_abs_err(out, lib)
+    assert bool(torch.allclose(out.float(), lib.float(), rtol=5e-2, atol=5e-2)), err
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+
+    def flash_fb():
+        return torch.autograd.grad(LAYERS.causal_flash(qg, kg, vg, 1024), (qg, kg, vg), dout)
+
+    def sdpa_fb():
+        return torch.autograd.grad(sdpa(qg, kg, vg), (qg, kg, vg), dout)
+
+    io = B * S * (H + 2 * KV) * Dh * 2 + B * S * H * Dh * 2
+    macs = B * H * Dh * S * (S + 1) // 2  # one causal product
+    it = run["attn_iters"]
+    fwd_ms, fb_ms = cuda_ms(lambda: LAYERS.causal_flash(q, k, v, 1024), it)[0], cuda_ms(flash_fb, it)[0]
+    b_f, by_f = bound(io, 2 * 2 * macs, BF16_OPS_PER_S)
+    b_fb, by_fb = bound(2 * io, 7 * 2 * macs, BF16_OPS_PER_S)
+    return {"shape": [B, S, H, KV, Dh], "max_abs_err_vs_sdpa": err,
+            "fwd": {"ms": fwd_ms, "sdpa_ms": cuda_ms(lambda: sdpa(q, k, v), it)[0], "bound_ms": b_f, "bound_by": by_f},
+            "fwd_bwd": {"ms": fb_ms, "sdpa_ms": cuda_ms(sdpa_fb, it)[0], "bound_ms": b_fb, "bound_by": by_fb}}
+
+
+def family_phase(dev, kind: str, src: SageFile, oracle: "Oracle") -> dict:
+    """A dense (qwen2-1.5b) or hybrid (zamba2-2.7b) LM at full width on the
+    card, weights from a seeded generator:
+
+    (a) serving: 8 prompts from an Illumina block through a fused kmer
+        session of a store of its own (B1, B5), two greedy generate calls
+        (the hybrid: B6 once a Mamba2 layer a step), held against the CPU's
+        prompts and each other; TTFT, decode ms a step, tokens/s, peak
+        memory, profiles of a prefill and 4 decode steps with the device
+        time inside the attention;
+    (b) a depth cut against the CPU: f32 and bf16 prefill logits and the
+        cache of 2 prompts of 512 tokens;
+    (c) the duality on the cut (f32): step-by-step decode against the
+        chunked forward, and its cache against a chunked prefill's;
+    (d) training through the Trainer (no checkpoint) on a fused
+        SageTokenPipeline: every batch against refdec's k-mer stream, the
+        loss falls, launch counts from 0 (the hybrid: B6 forward twice a
+        Mamba2 layer a step, backward once); step ms, tokens/s, peak
+        memory, a profiled step (busy share, top device ops, attention);
+    (e) a depth cut's train step (f32) against the CPU within
+        tests/train_cases.py's bounds;
+    (f) the attention beside scaled_dot_product_attention at the train
+        shape.
+    Returns the launches of the serving and training paths."""
+    spec, run = FAMILY[kind], FAMILY_RUN
+    t_phase = time.perf_counter()
+    parts, t_part = {}, [t_phase]
+
+    def part(name: str) -> None:  # seconds since the previous part ended
+        now = time.perf_counter()
+        parts[name] = now - t_part[0]
+        t_part[0] = now
+    cfg = get_arch(spec["arch"])
+    n_ssm = cfg.n_layers if cfg.family == "hybrid" else 0
+    focus = "ssd" if n_ssm else ""
+    attn = [(LAYERS, "attention_train"), (LAYERS, "_flash_fwd_impl")]
+
+    # (a) serving
+    t0 = time.perf_counter()
+    model = lm.init_params(torch.Generator(device=dev).manual_seed(spec["seed"]), cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    k = pick_k(cfg.vocab)
+    sc = ServeConfig()
+    engine = ServingEngine(cfg, model, sc)
+    store = SageStore(max_prepared=4, group_blocks=GROUP)
+    store.register("illumina", str(WORK / "illumina.sage2"))
+    feed = dict(vocab=cfg.vocab, n_prompts=run["prompts"], max_prompt=sc.max_prompt, kmer_k=k,
+                block_range=(spec["prompt_block"], spec["prompt_block"] + 1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_trace_counts()
+    t0 = time.perf_counter()
+    prompts = prompts_from_store(store.session(fused=True), "illumina", **feed)
+    prompt_s = time.perf_counter() - t0
+    gens, gen_s, per_gen = [], [], []
+    for _ in range(2):
+        before = trace_counts().get("launch:ssd_intra", 0)
+        torch.cuda.synchronize()
+        g0 = time.perf_counter()
+        gens.append(np.stack(engine.generate(prompts)))
+        gen_s.append(time.perf_counter() - g0)
+        per_gen.append(trace_counts().get("launch:ssd_intra", 0) - before)
+    counts = trace_counts()
+    serve_peak = torch.cuda.max_memory_allocated()
+    serve_n = {kk: counts.get(f"launch:{kk}", 0) for kk in ("sage_unpack", "sage_fused") + ("ssd_intra",) * bool(n_ssm)}
+    plain = {kk: v for kk, v in counts.items() if kk.startswith("plain:")}
+    assert not plain, f"the {kind} serving path ran plain versions on the card: {plain}"
+    assert all(serve_n.values()), f"the {kind} serving path never launched: {serve_n}"
+    assert per_gen == [n_ssm * sc.max_new] * 2, per_gen
+    assert len(prompts) == run["prompts"] and all(p.size > 0 for p in prompts)
+    cpu_store = SageStore(device="cpu", group_blocks=GROUP)
+    cpu_store.register("illumina", str(WORK / "illumina.sage2"))
+    want = prompts_from_store(cpu_store.session(fused=True), "illumina", **feed)
+    assert len(want) == len(prompts) and all(np.array_equal(a, b) for a, b in zip(prompts, want)), \
+        "prompts from the card disagree with the plain versions on the CPU"
+    out = gens[0]
+    assert out.shape == (run["prompts"], sc.max_new) and out.min() >= 0 and out.max() < cfg.vocab, out
+    assert np.array_equal(gens[0], gens[1]), "a second greedy generate gave other tokens"
+
+    steps = run["decode_steps"]
+    max_len = sc.max_prompt + steps + run["profile_steps"] + 1  # room for the profiled steps after the timed ones
+    toks = torch.as_tensor(slot_tokens(prompts, sc.max_prompt), device=dev)
+    logits, cache = lm.prefill(model, cfg, toks, max_len)
+    ttft = []
+    for _ in range(run["prefill_runs"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = lm.prefill(model, cfg, toks, max_len)
+        torch.cuda.synchronize()
+        ttft.append((time.perf_counter() - t0) * 1e3)
+    assert bool(torch.isfinite(logits.float()).all()), "prefill logits not finite"
+    first = torch.argmax(logits[:, -1].float(), dim=-1)[:, None]
+    cur = first
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(steps):
+        lg, cache = lm.decode_step(model, cfg, cur, cache, sc.max_prompt + t)
+        cur = torch.argmax(lg[:, -1].float(), dim=-1)[:, None]
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    assert bool(torch.isfinite(lg.float()).all()), "decode logits not finite"
+
+    def decode_window(_i):  # decode_step writes into the cache it is given: go on after the timed steps
+        tok = first
+        for t in range(run["profile_steps"]):
+            lg2, _ = lm.decode_step(model, cfg, tok, cache, sc.max_prompt + steps + t)
+            tok = torch.argmax(lg2[:, -1].float(), dim=-1)[:, None]
+        return tok
+
+    serve_prof = {
+        "prefill": profile_window(lambda _i: lm.prefill(model, cfg, toks, max_len), focus=focus, ranges=attn),
+        f"decode_{run['profile_steps']}_steps": profile_window(decode_window, focus=focus,
+                                                               ranges=[(LAYERS, "attention_decode")])}
+    del model, engine, cache, logits, lg
+    torch.cuda.empty_cache()
+    part("serve")
+
+    # (b) the depth cut against the CPU, same weights
+    cut = dataclasses.replace(cfg, n_layers=spec["cut_layers"])
+    m_dev = lm.init_params(torch.Generator(device=dev).manual_seed(spec["seed"] + 1), cut, device=dev)
+    m_cpu = copy.deepcopy(m_dev).to("cpu")
+    rand = np.random.default_rng(spec["seed"]).integers(0, cfg.vocab, (run["cpu_prompts"], sc.max_prompt))
+    t_cpu = torch.as_tensor(rand)
+    vs_cpu = {}
+    for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 5e-2)):
+        lg_d, c_d = lm.prefill(m_dev, cut, t_cpu.to(dev), dtype=dtype)
+        c0 = time.perf_counter()
+        lg_c, c_c = lm.prefill(m_cpu, cut, t_cpu, dtype=dtype)
+        name = str(dtype)[6:]
+        kv_err = max(max_abs_err(c_d[kk].cpu(), c_c[kk]) for kk in ("k", "v"))
+        vs_cpu[name] = {"logits_err": max_abs_err(lg_d.cpu(), lg_c), "tol": tol, "kv_err": kv_err,
+                        "logits_max": float(lg_c.float().abs().max()), "cpu_seconds": time.perf_counter() - c0}
+        if "ssm" in c_c:
+            vs_cpu[name]["state_err"] = state_err(c_d["ssm"], c_c["ssm"])
+        assert bool(torch.allclose(lg_d.cpu().float(), lg_c.float(), rtol=tol, atol=tol)), (name, vs_cpu[name])
+        if dtype == torch.float32:
+            for kk in ("k", "v"):
+                assert bool(torch.allclose(c_d[kk].cpu(), c_c[kk], rtol=tol, atol=tol)), (kk, vs_cpu[name])
+            if "ssm" in c_c:
+                assert vs_cpu[name]["state_err"] <= tol * (1 + max(float(v.abs().max()) for v in c_c["ssm"].values())), vs_cpu
+    del m_cpu
+    part("cut_vs_cpu")
+
+    # (c) duality on the cut, f32: chunked forward and prefill (KV blocks of
+    # 40 of 160 tokens) against step-by-step decode
+    T = run["duality_tokens"]
+    t2 = torch.as_tensor(rand[:, :T], device=dev)
+    with torch.no_grad():
+        full, _ = lm.forward(m_dev, cut, t2, chunk=run["duality_chunk"], dtype=torch.float32)
+    _lg, pre = lm.prefill(m_dev, cut, t2, T, chunk=run["duality_chunk"], dtype=torch.float32)
+    dcache = lm.init_cache(cut, batch=t2.shape[0], max_len=T, dtype=torch.float32, device=dev)
+    outs = []
+    for t in range(T):
+        lg, dcache = lm.decode_step(m_dev, cut, t2[:, t:t + 1], dcache, t, dtype=torch.float32)
+        outs.append(lg[:, 0])
+    dec = torch.stack(outs, dim=1)
+    duality = {"logits_err": max_abs_err(dec, full), "kv_err": max(max_abs_err(dcache[kk], pre[kk]) for kk in ("k", "v")),
+               "tol": 2e-2, "tokens": T, "chunk": LAYERS._pick_chunk(T, run["duality_chunk"])}
+    assert bool(torch.allclose(dec, full, rtol=2e-2, atol=2e-2)), duality
+    assert all(bool(torch.allclose(dcache[kk], pre[kk], rtol=2e-2, atol=2e-2)) for kk in ("k", "v")), duality
+    if "ssm" in pre:
+        duality["state_err"] = state_err(dcache["ssm"], pre["ssm"])
+        assert all(bool(torch.allclose(dcache["ssm"][kk], pre["ssm"][kk].float(), rtol=2e-2, atol=2e-2))
+                   for kk in pre["ssm"]), duality
+    del m_dev, dcache, pre, full
+    torch.cuda.empty_cache()
+    part("duality")
+
+    # (d) training: the Trainer over a fused pipeline on tiles of their own
+    n_src = src.meta.n_blocks
+    data = WORK / f"{kind}_train.sage2"
+    write_v2(tile_sage_file(src, run["tiles"], first=spec["first_tile"]), data)
+    S_ = spec["steps"]
+    opts = TrainOptions(adamw=AdamWConfig(lr=run["lr"], warmup_steps=run["warmup"], total_steps=S_))
+    tstore = SageStore(group_blocks=GROUP)
+    tstore.register("train", str(data))
+    pipe = SageTokenPipeline("train", cfg.vocab, run["batch"], run["seq"], store=tstore)
+    assert pipe.k == k
+    seen = []
+
+    def tap(it):
+        for b in it:
+            seen.append(b)
+            yield b
+
+    class NoSaveTrainer(Trainer):  # no checkpoint at full width (~18 GB for qwen2, ~28 GB for zamba2)
+        def _save(self, pipeline, block: bool = False) -> None:
+            pass
+
+    model, opt = init_train_state(torch.Generator(device=dev).manual_seed(spec["seed"] + 2), cfg, opts, device=dev)
+    tc = TrainerConfig(total_steps=S_, ckpt_every=S_ + 1, log_every=1, ckpt_dir=str(WORK / f"{kind}_ckpt"))
+    trainer = NoSaveTrainer(tc, cfg, opts, model, opt, tap(pipe.batches()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_trace_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        hist = trainer.run(pipeline=pipe)
+    run_s = time.perf_counter() - t0
+    counts = trace_counts()
+    train_peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    step_ms = [h["dt"] * 1e3 for h in hist]
+    train_n = {kk: counts.get(f"launch:{kk}", 0) for kk in ("sage_unpack", "sage_fused", "ssd_intra", "ssd_intra_bwd")}
+    plain = {kk: v for kk, v in counts.items() if kk.startswith("plain:")}
+    assert not plain, f"the {kind} train path ran plain versions on the card: {plain}"
+    assert train_n["sage_unpack"] > 0 and train_n["sage_fused"] > 0, train_n
+    assert (train_n["ssd_intra"], train_n["ssd_intra_bwd"]) == (2 * n_ssm * S_, n_ssm * S_), train_n
+    assert len(losses) == S_ and all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], f"training did not reduce the loss: {losses}"
+
+    def one_step_of_run(_i):  # one more step of the run (after the checks of its losses: it moves the model on)
+        b = {kk: torch.as_tensor(v).to(dev) for kk, v in next(trainer.data).items()}
+        return trainer.step_fn(trainer.model, trainer.opt, b)[2]["loss"]
+
+    train_prof = profile_window(one_step_of_run, focus=focus, ranges=attn + [(LAYERS, "_flash_bwd")])
+    need = run["batch"] * (run["seq"] + 1)
+    base = spec["first_tile"] * n_src
+    kpb = [oracle.rows[source_block(base + j, n_src)].size // k for j in range(run["tiles"] * n_src)]
+    n_blocks = int(np.searchsorted(np.cumsum(kpb), len(seen) * need)) + 1
+    flat = oracle.kmer_stream(np.arange(n_blocks) + base, k)
+    for i, b in enumerate(seen):  # the run's batches and the two profiled steps'
+        want = flat[i * need:(i + 1) * need].reshape(run["batch"], run["seq"] + 1)
+        assert np.array_equal(b["tokens"], want[:, :-1]) and np.array_equal(b["labels"], want[:, 1:]), \
+            f"{kind} train batch {i} disagrees with refdec's k-mer stream"
+    del trainer, model, opt
+    torch.cuda.empty_cache()
+    part("train")
+
+    # (e) a depth cut's train step (f32 activations) against the CPU
+    cut2, c_dev, c_cpu = cut_models(cfg, spec["train_cut_layers"], dev, seed=spec["seed"] + 3)
+    cb = cut_batch(cut2, run["cut_batch"], run["cut_seq"], seed=spec["seed"])
+    c0 = time.perf_counter()
+    on_card = one_step(cut2, c_dev, cb, dev)
+    c1 = time.perf_counter()
+    on_cpu = one_step(cut2, c_cpu, cb, "cpu")
+    c2 = time.perf_counter()
+    step_vs_cpu = compare_step(on_card, on_cpu, dev)
+    step_vs_cpu.update(seconds=time.perf_counter() - c0, card_step_seconds=c1 - c0, cpu_step_seconds=c2 - c1,
+                       compare_seconds=time.perf_counter() - c2)
+    del c_dev, c_cpu, on_card, on_cpu
+    torch.cuda.empty_cache()
+    part("train_cut_vs_cpu")
+
+    # (f) the attention beside scaled_dot_product_attention
+    yard = attention_yardstick(cfg, dev, spec["seed"] + 4)
+    torch.cuda.empty_cache()
+    part("attention_yardstick")
+
+    n_tok = run["prompts"] * sc.max_new
+    tok = run["batch"] * run["seq"]
+    steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    emit(kind, arch=cfg.name, family=cfg.family, params=n_params, layers=cfg.n_layers, d_model=cfg.d_model,
+         heads=[cfg.n_heads, cfg.n_kv_heads, cfg.head_dim], d_ff=cfg.d_ff, vocab=cfg.vocab, kmer_k=k,
+         init_seconds=init_s,
+         serve={"prompts": len(prompts), "prompt_kmers": [int(p.size) for p in prompts], "prompt_seconds": prompt_s,
+                "max_prompt": sc.max_prompt, "max_new": sc.max_new, "generate_seconds": gen_s,
+                "generate_tokens_per_s": [n_tok / g for g in gen_s], "ssd_launches_per_generate": per_gen,
+                "launches": serve_n, "peak_device_bytes": serve_peak, "ttft_ms": ttft,
+                "decode_ms_per_step": dec_s / steps * 1e3, "decode_tokens_per_s": run["prompts"] * steps / dec_s,
+                "first_tokens": out[:, :8].tolist(), "profile": serve_prof},
+         card_vs_cpu={"cut_layers": spec["cut_layers"], "prompts": run["cpu_prompts"], **vs_cpu},
+         duality=duality,
+         train={"batch": run["batch"], "seq": run["seq"], "steps": S_, "remat": "nothing", "dtype": "bfloat16",
+                "blocks": [base, base + run["tiles"] * n_src], "losses": losses, "step_ms": step_ms,
+                "median_step_ms_after_first": steady, "tokens_per_s": tok / (steady / 1e3), "run_seconds": run_s,
+                "launches": train_n, "launches_per_step": {kk: v / S_ for kk, v in train_n.items()},
+                "batches_checked_against_refdec": len(seen), "peak_device_bytes": train_peak,
+                "profile_step": train_prof},
+         train_step_vs_cpu={"cut_layers": spec["train_cut_layers"], "batch": [run["cut_batch"], run["cut_seq"]],
+                            **step_vs_cpu},
+         attention=yard, part_seconds=parts, seconds=time.perf_counter() - t_phase)
+    shutil.rmtree(WORK / f"{kind}_ckpt", ignore_errors=True)
+    return {"serve": serve_n, "train": train_n}
 
 
 def main() -> None:
@@ -1464,7 +1865,8 @@ def main() -> None:
     # of 512 tokens (Q = 128, the tensor-core route) and a decode step (Q = 1,
     # the decode route), timed in bf16 x as the model runs them; as checks f32
     # x, the test draw, large decay in f32 and bf16, chunks of 2, 17 and 127
-    # steps and zamba2-2.7b's N = 64
+    # steps and zamba2-2.7b's N = 64 (its train shape and its decode step,
+    # each timed in bf16 as the hybrid phase runs it)
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32, stated not assumed
     torch.backends.cudnn.allow_tf32 = False
     lm_cfg = get_arch(LM_ARCH)
@@ -1474,8 +1876,12 @@ def main() -> None:
                     lm_cfg.ssm_heads, lm_cfg.ssm_headdim, lm_cfg.ssm_state),
         "decode": (LM["prompts"], 1, 1, lm_cfg.ssm_heads, lm_cfg.ssm_headdim, lm_cfg.ssm_state),
     }
-    zcfg = get_arch("zamba2-2.7b")  # the repo's other SSM: N = 64, 80 heads
+    zcfg = get_arch("zamba2-2.7b")  # the hybrid's Mamba2 layers: N = 64, 80 heads
     b6_shapes["zamba2"] = (2, 2, zcfg.ssm_chunk, zcfg.ssm_heads, zcfg.ssm_headdim, zcfg.ssm_state)
+    b6_shapes["zamba2_train"] = (FAMILY_RUN["batch"], FAMILY_RUN["seq"] // zcfg.ssm_chunk, zcfg.ssm_chunk,
+                                 zcfg.ssm_heads, zcfg.ssm_headdim, zcfg.ssm_state)  # the hybrid phase's 8 x 512
+    b6_shapes["zamba2_decode"] = (FAMILY_RUN["prompts"], 1, 1, zcfg.ssm_heads, zcfg.ssm_headdim,
+                                  zcfg.ssm_state)  # the hybrid phase's decode step of 8 prompts
     for q in (2, 17, 127):  # chunk tails of the prefill route
         b6_shapes[f"q{q}"] = (2, 3, q, lm_cfg.ssm_heads, lm_cfg.ssm_headdim, lm_cfg.ssm_state)
     b6_checks, b6_rows = {}, {}
@@ -1486,13 +1892,16 @@ def main() -> None:
         ("prefill", torch.float32, "large"), ("prefill", torch.bfloat16, "large"),
         ("q2", torch.float32, "unit"), ("q17", torch.float32, "unit"), ("q127", torch.float32, "large"),
         ("zamba2", torch.float32, "serve"), ("zamba2", torch.bfloat16, "large"),
+        ("zamba2_train", torch.bfloat16, "serve"), ("zamba2_train", torch.float32, "large"),
+        ("zamba2_decode", torch.bfloat16, "serve"), ("zamba2_decode", torch.float32, "large"),
     ]):
         args = ssd_inputs(b6_shapes[shp], xdt, decay, seed=100 + i, dev=dev)
         name = f"{shp}_{str(xdt)[6:]}_{decay}"
         b6_checks[name] = ssd_check(args, xdt)
-        if shp in ("prefill", "decode") and decay == "serve" and xdt == torch.bfloat16:  # what the lm path launches
+        if shp in ("prefill", "decode", "zamba2_train", "zamba2_decode") and decay == "serve" \
+                and xdt == torch.bfloat16:  # what the paths launch
             b_ms, b_by = ssd_bound(b6_shapes[shp], 2)
-            iters = 50 if shp == "prefill" else 200
+            iters = 200 if shp.endswith("decode") else 50
             row = dict(
                 shape=list(b6_shapes[shp]), max_abs_err=max(b6_checks[name][f"{k}_err"] for k in ("y", "state", "total")),
                 **timings(lambda args=args: ssd_intra(*args), iters, lambda args=args: ssd_intra_plain(*args), 5),
@@ -1503,7 +1912,8 @@ def main() -> None:
     table["ssd_intra"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/ssd_chunk.cu",
         replaces="src/repro/kernels/ssd_chunk.py:22", match=all(c["match"] for c in b6_checks.values()),
-        **b6_rows["prefill"], library_ms=None, decode=b6_rows["decode"])
+        **b6_rows["prefill"], library_ms=None, decode=b6_rows["decode"],
+        zamba2={**b6_rows["zamba2_train"], "decode": b6_rows["zamba2_decode"]})
 
     # B6's backward at the train shape (mamba2-370m, 8 x 512 tokens: the
     # prefill shape) with bf16 x, as the train step launches it, timed; as
@@ -1514,11 +1924,21 @@ def main() -> None:
         ("prefill", torch.bfloat16, "serve"), ("prefill", torch.float32, "serve"),
         ("prefill", torch.float32, "large"), ("prefill", torch.bfloat16, "large"),
         ("q17", torch.float32, "unit"), ("zamba2", torch.bfloat16, "serve"),
+        ("zamba2_train", torch.bfloat16, "serve"), ("zamba2_train", torch.float32, "large"),
     ]):
         args = ssd_inputs(b6_shapes[shp], xdt, decay, seed=200 + i, dev=dev) + \
             ssd_grads(b6_shapes[shp], xdt, seed=300 + i, dev=dev)
         name = f"{shp}_{str(xdt)[6:]}_{decay}"
         bwd_checks[name] = ssd_bwd_check(args)
+        if name == "zamba2_train_bfloat16_serve":  # what the hybrid phase's steps launch
+            b_ms, b_by = ssd_bwd_bound(b6_shapes[shp], 2)
+            bwd_zamba2 = dict(
+                shape=list(b6_shapes[shp]),
+                max_abs_err=max(bwd_checks[name][f"{k}_err"] for k in ("dx", "ddt", "da", "dB", "dC")),
+                **timings(lambda args=args: ssd_intra_bwd(*args), 20,
+                          lambda args=args: ssd_intra_bwd_plain(*args), 3),
+                bound_ms=b_ms, bound_by=b_by)
+            bwd_zamba2["bound_share"] = b_ms / bwd_zamba2["ms"]
         if bwd_row is None:
             b_ms, b_by = ssd_bwd_bound(b6_shapes[shp], 2)
             bwd_row = dict(
@@ -1532,7 +1952,7 @@ def main() -> None:
     table["ssd_intra_bwd"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
         replaces="no TPU twin: jax.grad of src/repro/models/ssm.py:57 ssd_chunked",
-        match=all(c["match"] for c in bwd_checks.values()), **bwd_row, library_ms=None,
+        match=all(c["match"] for c in bwd_checks.values()), **bwd_row, library_ms=None, zamba2=bwd_zamba2,
         plan={"ctas": int(np.prod(b6_shapes["prefill"][:2])) * b6_shapes["prefill"][3], "threads": 256,
               **ptxas_usage("ssd_chunk_bwd", "ssd_bwd_kernel")})
 
@@ -1572,7 +1992,8 @@ def main() -> None:
          match={k: v["match"] for k, v in table.items()},
          call_ms={k: v["call_ms"] for k, v in table.items()},
          shapes={k: v["shape"] for k, v in table.items()}, ssd_checks=b6_checks,
-         ssd_decode=b6_rows["decode"], align_scan_cases=dp_cases)
+         ssd_decode=b6_rows["decode"], ssd_zamba2=b6_rows["zamba2_train"],
+         ssd_zamba2_decode=b6_rows["zamba2_decode"], align_scan_cases=dp_cases)
     bad = [k for k, v in table.items() if not v["match"]]
     assert not bad, f"kernels disagree with their plain versions: {bad}"
 
@@ -1797,12 +2218,16 @@ def main() -> None:
 
     # ---- train: mamba2-370m at full width trains on SAGe k-mer tokens -----
     launches["ssd_intra_bwd"] = train_phase(dev, lm_cfg, src, oracles["illumina"])
+
+    # ---- dense and hybrid: qwen2-1.5b and zamba2-2.7b served and trained --
+    for kind in FAMILY:
+        family_phase(dev, kind, src, oracles["illumina"])
     for k, v in table.items():
         v["launches"] = launches[k]
     kernels = [{"name": k, **{f: v[f] for f in (
         "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-        "bound_ms", "bound_by", "library_ms")}, **{f: v[f] for f in ("plan", "launch_floor_ms", "bound_share")
-                                                    if f in v}}
+        "bound_ms", "bound_by", "library_ms")}, **{f: v[f] for f in ("plan", "launch_floor_ms", "bound_share",
+                                                                  "decode", "zamba2") if f in v}}
         for k, v in table.items()]
     shutil.rmtree(WORK)
     emit("done", seconds=time.perf_counter() - t_start)

@@ -4,11 +4,13 @@ the SageServer frontend on the card.
 The paper's SAGe_Read/SAGe_ISP contract — decoded reads flow straight from
 the store into the analysis system — served to many concurrent tenants:
 ranged decodes, consensus windows, a streaming analysis feed, and genomic
-LM continuations (mamba2-370m) all share one scheduler, one
-continuous-batch loop, and one device-resident store.
+LM continuations (``--arch``: mamba2-370m by default, or a dense or hybrid
+configuration such as qwen2-1.5b or zamba2-2.7b) all share one scheduler,
+one continuous-batch loop, and one device-resident store.
 
   PYTHONPATH=src python examples/serve_genomic_lm_torch.py               # full width, on the card
   PYTHONPATH=src python examples/serve_genomic_lm_torch.py --device cpu  # reduced(), plain versions
+  PYTHONPATH=src python examples/serve_genomic_lm_torch.py --arch zamba2-2.7b --device cpu
 """
 
 import argparse
@@ -29,9 +31,10 @@ from repro_torch.serving import SageServer, ServeConfig, ServingEngine, SessionP
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--arch", default="mamba2-370m", help="an ssm, dense or hybrid configuration")
     args = ap.parse_args()
     dev = torch.device(args.device)
-    cfg = get_arch("mamba2-370m")
+    cfg = get_arch(args.arch)
     if dev.type == "cpu":
         cfg = cfg.reduced()  # full width is for the card
     model = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)

@@ -1,14 +1,16 @@
-"""End-to-end example with the PyTorch port: train a genomic Mamba2 LM on
+"""End-to-end example with the PyTorch port: train a genomic LM on
 SAGe-prepared tokens, with checkpoints and resume (the torch twin of
 examples/train_genomic_lm.py).
 
 By default a reduced mamba2-370m (4 layers, d_model 256) trains on the card;
-``--full`` selects the full architecture, ``--device cpu`` the plain torch
-versions on the CPU. A second run with the same ``--ckpt-dir`` resumes from
+``--arch`` takes a dense or hybrid configuration instead (qwen2-1.5b,
+zamba2-2.7b, ...), ``--full`` the full architecture, ``--device cpu`` the
+plain torch versions on the CPU. A second run with the same ``--ckpt-dir`` resumes from
 the newest checkpoint (parameters, AdamW state and the data cursor).
 
   PYTHONPATH=src python examples/train_genomic_lm_torch.py --steps 300
   PYTHONPATH=src python examples/train_genomic_lm_torch.py --device cpu --steps 60 --seq 128
+  PYTHONPATH=src python examples/train_genomic_lm_torch.py --arch qwen2-1.5b --device cpu --steps 60 --seq 128
 """
 
 import argparse
@@ -38,14 +40,15 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=400)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
-    ap.add_argument("--full", action="store_true", help="full mamba2-370m")
+    ap.add_argument("--arch", default="mamba2-370m", help="an ssm, dense or hybrid configuration")
+    ap.add_argument("--full", action="store_true", help="the full architecture")
     ap.add_argument("--dmodel", type=int, default=256, help="reduced width")
     ap.add_argument("--layers", type=int, default=4, help="reduced depth")
     ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(), "genomic_lm_torch_ckpt"))
     args = ap.parse_args()
 
     dev = resolve_device(args.device)
-    cfg = get_arch("mamba2-370m")
+    cfg = get_arch(args.arch)
     if not args.full:
         cfg = dataclasses.replace(cfg.reduced(), n_layers=args.layers, d_model=args.dmodel,
                                   d_inner=2 * args.dmodel, vocab=4**4 + 3)

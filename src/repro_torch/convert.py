@@ -19,6 +19,7 @@ import torch
 from repro_torch.checkpoint.checkpoint import LeafSpec
 from repro_torch.core.decode_torch import DeviceBlocks, host_to_tensor, resolve_device
 from repro_torch.core.format import BlockCaps, SageFile, SageMeta
+from repro_torch.models import lm
 
 
 def sage_file_from_reference(sf) -> SageFile:
@@ -53,69 +54,92 @@ def device_blocks_from_reference(db, device="cuda") -> DeviceBlocks:
     )
 
 
-def _require_ssm(cfg, fn: str) -> None:
-    if cfg.family != "ssm":
-        raise NotImplementedError(
-            f"{fn}: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP Queue A, slice 6b part 2: the other LM families and their training)"
-        )
+def _lead(cfg) -> tuple[int, ...]:
+    """The leading axes the JAX package stacks a layer parameter on: (L,),
+    or the hybrid's (groups, attn_every)."""
+    lm._require_ported(cfg)
+    if cfg.family == "hybrid":
+        return (cfg.n_layers // cfg.attn_every, cfg.attn_every)
+    return (cfg.n_layers,)
+
+
+def _flat(tree, prefix: str = "") -> list[tuple[str, object]]:
+    """A nested dict's leaves as (``.``-joined key, leaf)."""
+    if isinstance(tree, dict):
+        return [kv for k in tree for kv in _flat(tree[k], f"{prefix}{k}.")]
+    return [(prefix[:-1], tree)]
+
+
+def _nest(flat: dict) -> dict:
+    out: dict = {}
+    for name, v in flat.items():
+        *path, last = name.split(".")
+        d = out
+        for k in path:
+            d = d.setdefault(k, {})
+        d[last] = v
+    return out
+
+
+def _layer_name(idx: tuple, key: str) -> str:
+    return "layers." + "".join(f"{i}." for i in idx) + key
 
 
 def lm_params_from_reference(cfg, params) -> dict[str, torch.Tensor]:
-    """A ``state_dict`` for :class:`repro_torch.models.lm.Mamba2LM` holding
-    the JAX package's parameters ``params`` of ``cfg`` (its nested dict with
-    layers stacked on a leading L axis; any arrays ``np.asarray`` takes).
-    Layers are unstacked into ``layers.<i>.…``; values stay f32."""
-    _require_ssm(cfg, "lm_params_from_reference")
+    """A ``state_dict`` for the model of ``cfg`` (``lm.init_params``)
+    holding the JAX package's parameters ``params`` (its nested dict with
+    layer parameters stacked on a leading L axis, or the hybrid's (groups,
+    attn_every) axes; any arrays ``np.asarray`` takes). Layers are unstacked
+    into ``layers.<i>.…`` (``layers.<g>.<j>.…``), the hybrid's
+    ``shared_attn`` keeps its keys; values stay f32."""
+    lead = _lead(cfg)
 
     def t(a) -> torch.Tensor:
         return torch.from_numpy(np.array(a, dtype=np.float32))
 
-    sd = {"embed": t(params["embed"]), "norm_f": t(params["norm_f"])}
-    if not cfg.tie_embeddings:
-        sd["lm_head"] = t(params["lm_head"])
-    layers = params["layers"]
-    for i in range(cfg.n_layers):
-        sd[f"layers.{i}.norm1"] = t(np.asarray(layers["norm1"])[i])
-        for k, v in layers["ssm"].items():
-            sd[f"layers.{i}.ssm.{k}"] = t(np.asarray(v)[i])
+    sd = {k: t(params[k]) for k in ("embed", "norm_f", "lm_head") if k in params}
+    for key, a in _flat(params["layers"]):
+        a = np.asarray(a)
+        for idx in np.ndindex(*lead):
+            sd[_layer_name(idx, key)] = t(a[idx])
+    if cfg.family == "hybrid":
+        sd.update({f"shared_attn.{k}": t(a) for k, a in _flat(params["shared_attn"])})
     return sd
 
 
 def _to_reference(cfg, named: dict, leaf) -> dict:
     """``named`` ({state-dict name: tensor}) in the JAX package's nested
-    layout; ``leaf`` takes one tensor, or the layers' list of tensors to
-    stack on a leading L axis."""
-    L = cfg.n_layers
-    out = {"embed": leaf(named["embed"]), "norm_f": leaf(named["norm_f"])}
-    if not cfg.tie_embeddings:
-        out["lm_head"] = leaf(named["lm_head"])
-    keys = [k[len("layers.0.ssm."):] for k in named if k.startswith("layers.0.ssm.")]
-    out["layers"] = {
-        "norm1": leaf([named[f"layers.{i}.norm1"] for i in range(L)]),
-        "ssm": {k: leaf([named[f"layers.{i}.ssm.{k}"] for i in range(L)]) for k in keys},
-    }
+    layout; ``leaf(t)`` takes one tensor, ``leaf(ts, lead)`` the layers'
+    list of tensors to stack on the ``lead`` axes."""
+    lead = _lead(cfg)
+    idx = list(np.ndindex(*lead))
+    first = _layer_name(idx[0], "")
+    keys = [k[len(first):] for k in named if k.startswith(first)]
+    out = {k: leaf(named[k]) for k in ("embed", "norm_f", "lm_head") if k in named}
+    out["layers"] = _nest({k: leaf([named[_layer_name(i, k)] for i in idx], lead) for k in keys})
+    if cfg.family == "hybrid":
+        out["shared_attn"] = _nest({k[len("shared_attn."):]: leaf(v) for k, v in named.items()
+                                    if k.startswith("shared_attn.")})
     return out
 
 
-def _host(t) -> np.ndarray:
+def _host(t, lead: tuple = ()) -> np.ndarray:
     if isinstance(t, list):
-        t = torch.stack([x.detach() for x in t])
+        t = torch.stack([x.detach() for x in t]).reshape(*lead, *t[0].shape)
     return t.detach().cpu().numpy()
 
 
-def _spec(t) -> LeafSpec:
-    shape = (len(t),) + tuple(t[0].shape) if isinstance(t, list) else tuple(t.shape)
+def _spec(t, lead: tuple = ()) -> LeafSpec:
+    shape = tuple(lead) + tuple(t[0].shape) if isinstance(t, list) else tuple(t.shape)
     return LeafSpec(shape, np.float32)
 
 
 def train_state_to_reference(cfg, model, opt: dict, *, shapes_only: bool = False) -> dict:
     """``{"params": ..., "opt": {"m", "v", "step"[, "ef"]}}`` as the JAX
     package's trainer holds it: nested dicts under ``repro``'s keys, layers
-    stacked on a leading L axis, host numpy arrays (a synchronous
+    stacked on their leading axes, host numpy arrays (a synchronous
     device->host copy). ``shapes_only`` gives ``LeafSpec`` leaves, all a
     restore needs, without copying."""
-    _require_ssm(cfg, "train_state_to_reference")
     leaf = _spec if shapes_only else _host
     ref_opt = {k: _to_reference(cfg, opt[k], leaf) for k in ("m", "v", "ef") if k in opt}
     ref_opt["step"] = LeafSpec((), np.int32) if shapes_only else np.asarray(int(opt["step"]), np.int32)
@@ -128,7 +152,6 @@ def train_state_from_reference(cfg, params, opt) -> tuple[dict, dict]:
     arrays ``np.asarray`` takes). The optimizer's moments are keyed by the
     model's parameter names; every tensor is f32 on the CPU, but ``step``
     (int32)."""
-    _require_ssm(cfg, "train_state_from_reference")
     out = {k: lm_params_from_reference(cfg, opt[k]) for k in ("m", "v", "ef") if k in opt}
     out["step"] = torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int32)
     return lm_params_from_reference(cfg, params), out

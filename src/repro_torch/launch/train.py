@@ -1,12 +1,15 @@
-"""Training launcher: SAGe data pipeline -> Mamba2 LM -> fault-tolerant loop
+"""Training launcher: SAGe data pipeline -> LM -> fault-tolerant loop
 (the port of ``src/repro/launch/train.py``), on the card unless asked for
 the CPU.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m --steps 50 --batch 8 --seq 512
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu --steps 4 --batch 2 --seq 64
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b --smoke --device cpu --steps 4 --batch 2 --seq 64
 
-``--arch`` defaults to ``mamba2-370m``, the one LM family the port has;
-any other family raises, naming the ROADMAP slice that brings it.
+``--arch`` (default ``mamba2-370m``) takes a configuration of the ssm,
+dense or hybrid family (mamba2-370m, qwen2-1.5b, yi-9b, yi-34b,
+minitron-8b, zamba2-2.7b); the moe, vlm and encdec families raise,
+naming the ROADMAP slice that brings them.
 ``--smoke`` trains the config's ``reduced()`` cut. Weights are drawn from a
 ``torch.Generator`` seeded with 0. The reads are encoded by the batched
 ``SageEncoder`` on ``--device`` into a ``SageTokenPipeline`` over a fused

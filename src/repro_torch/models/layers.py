@@ -1,11 +1,17 @@
-"""Shared model layers (torch), the parts the SSM family needs, and the
-loss.
+"""Shared model layers (torch): norms, rotary embeddings, GQA attention
+(the blockwise ``causal_flash`` with its written-out backward, cached
+decode attention), the MLP, and the loss.
 
 Conventions, as in the JAX package: activations flow in a compute dtype
 (bf16 by default), parameters live in f32, matrices are ``(d_in, d_out)``
 and applied as ``x @ W``. Initialisers draw from an explicit
 ``torch.Generator`` on the device that holds the result; their numbers differ from ``jax.random``'s, so tests
 carry the JAX package's weights across (``repro_torch.convert``).
+
+Where the JAX package writes ``einsum(..., preferred_element_type=F32)`` on
+bf16 operands, the port upcasts the operands to f32 (exact) and multiplies
+in f32: ``torch.matmul`` on bf16 would round the product to bf16. The
+attention is plain torch ops, the same code on the CPU and the card.
 """
 
 from __future__ import annotations
@@ -14,6 +20,8 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -35,6 +43,302 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Te
     y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (y * (1.0 + scale.to(F32))).to(x.dtype)
 
+
+def cast_once(cache: dict, named: dict, dtype) -> dict:
+    """``named`` tensors in ``dtype``, as a per-call ``.to(dtype)`` gives them.
+
+    With grad mode off, each cast is made once and kept in ``cache`` until
+    the tensor changes in place (its version counter moves), so serving
+    casts no weight per step. With grad mode on, the cast is made afresh,
+    so gradients flow to the f32 parameters."""
+    if torch.is_grad_enabled():
+        return {k: v.to(dtype) for k, v in named.items()}
+    out = {}
+    for k, v in named.items():
+        if v.dtype == dtype:
+            out[k] = v
+            continue
+        key = (k, dtype)
+        stamp = (v.data_ptr(), v._version)
+        hit = cache.get(key)
+        if hit is None or hit[0] != stamp:
+            hit = (stamp, v.detach().to(dtype))
+            cache[key] = hit
+        out[k] = hit[1]
+    return out
+
+
+class Params(nn.Module):
+    """A dict of parameters under the JAX package's keys (``wq``, ``up``,
+    ...). :meth:`params` gives them as the functional layers take them: the
+    ``cast`` keys (all keys by default) in the compute dtype, one copy kept
+    per dtype under ``no_grad`` (:func:`cast_once`), the rest as stored."""
+
+    def __init__(self, p: dict, cast: Optional[tuple] = None) -> None:
+        super().__init__()
+        for k, v in p.items():
+            self.register_parameter(k, nn.Parameter(v))
+        self._cast = tuple(p) if cast is None else cast
+        self._casts: dict = {}
+
+    def params(self, dtype) -> dict:
+        named = dict(self.named_parameters())
+        out = dict(named)
+        out.update(cast_once(self._casts, {k: named[k] for k in self._cast}, dtype))
+        return out
+
+
+# --------------------------------------------------------------------------
+# rotary embeddings
+# --------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=F32, device=device) / head_dim))
+
+
+def rope_apply(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, Dh); positions: (..., S) integers. The rotation runs
+    in f32 (``x1 * cos`` promotes bf16) and is cast back to ``x``'s dtype."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)
+    ang = positions[..., None].to(F32) * freqs  # (..., S, Dh/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., : dh // 2], x[..., dh // 2 :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# attention
+# --------------------------------------------------------------------------
+
+def attn_init(gen: torch.Generator, cfg, dtype=F32) -> dict:
+    d, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": dense_init(gen, d, H * Dh, dtype),
+        "wk": dense_init(gen, d, KV * Dh, dtype),
+        "wv": dense_init(gen, d, KV * Dh, dtype),
+        "wo": dense_init(gen, H * Dh, d, dtype),
+    }
+    if cfg.qkv_bias:
+        for k, n in (("bq", H * Dh), ("bk", KV * Dh), ("bv", KV * Dh)):
+            p[k] = torch.zeros((n,), dtype=dtype, device=gen.device)
+    return p
+
+
+def qkv_project(p: dict, x: torch.Tensor, cfg):
+    """(q (B,S,H,Dh), k (B,S,KV,Dh), v (B,S,KV,Dh)) in ``x``'s dtype."""
+    B, S, _ = x.shape
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = x @ p["wq"].to(x.dtype), x @ p["wk"].to(x.dtype), x @ p["wv"].to(x.dtype)
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"].to(x.dtype), k + p["bk"].to(x.dtype), v + p["bv"].to(x.dtype)
+    return q.reshape(B, S, H, Dh), k.reshape(B, S, KV, Dh), v.reshape(B, S, KV, Dh)
+
+
+def _pick_chunk(S: int, chunk: int) -> int:
+    c = min(chunk, S)
+    while S % c != 0:  # largest divisor of S not exceeding the request
+        c -= 1
+    return c
+
+
+def _heads_first(q, k, v):
+    """f32 copies (exact for bf16) laid out for batched products over the
+    KV heads: q as (B, KV, G·S, Dh), the G query heads of a KV head stacked
+    on the row axis (head h reads KV head h // G, as ``jnp.repeat(k, G,
+    axis=2)`` expands them); k and v as (B, KV, S, Dh)."""
+    B, S, H, Dh = q.shape
+    KV = k.shape[2]
+    qh = q.to(F32).permute(0, 2, 1, 3).reshape(B, KV, (H // KV) * S, Dh)
+    return qh, k.to(F32).permute(0, 2, 1, 3), v.to(F32).permute(0, 2, 1, 3)
+
+
+def _scores(qh, kj, scale, qpos, kpos, bidirectional):
+    """Scores of the query rows ``qpos`` (the rows of ``qh`` stacked G times)
+    against one KV block at ``kpos``, -inf after each query (causal)."""
+    s = (qh @ kj.transpose(-1, -2)) * scale  # (B, KV, G·S', c)
+    if not bidirectional:
+        ok = qpos[:, None] >= kpos[None, :]
+        s = s.masked_fill(~ok.repeat(s.shape[2] // qpos.numel(), 1), -math.inf)
+    return s
+
+
+def _flash_fwd_impl(q, k, v, chunk: int, bidirectional: bool):
+    """One loop over KV blocks; every query is scored against each block
+    with an online-softmax update, the ``live`` guards keeping rows whose
+    running max is still -inf finite. Causal: queries before a block see
+    none of it (their update is the identity, exactly), so each block
+    scores only the queries from its first key on. Returns (out in q's
+    dtype (B,S,H,Dh), lse f32 (B, KV, G·S))."""
+    B, S, H, Dh = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    c = _pick_chunk(S, chunk)
+    scale = 1.0 / math.sqrt(Dh)
+    qh, kh, vh = _heads_first(q, k, v)
+    pos = torch.arange(S, device=q.device)
+    m = torch.full((B, KV, G, S), -math.inf, dtype=F32, device=q.device)
+    l = torch.zeros((B, KV, G, S), dtype=F32, device=q.device)
+    acc = torch.zeros((B, KV, G, S, Dh), dtype=F32, device=q.device)
+    for j in range(S // c):
+        q0 = 0 if bidirectional else j * c
+        rows = qh.view(B, KV, G, S, Dh)[:, :, :, q0:].reshape(B, KV, G * (S - q0), Dh)
+        s = _scores(rows, kh[:, :, j * c:(j + 1) * c], scale, pos[q0:], pos[j * c:(j + 1) * c], bidirectional)
+        s = s.view(B, KV, G, S - q0, c)
+        mj, lj, aj = m[..., q0:], l[..., q0:], acc[..., q0:, :]
+        m_new = torch.maximum(mj, s.amax(-1))
+        live = m_new > -math.inf
+        base = torch.where(live, m_new, 0.0)
+        p = torch.where(live[..., None], torch.exp(s - base[..., None]), 0.0)
+        corr = torch.where(mj > -math.inf, torch.exp(mj - base), 0.0)
+        pv = p.to(v.dtype).to(F32).view(B, KV, G * (S - q0), c) @ vh[:, :, j * c:(j + 1) * c]
+        l[..., q0:] = lj * corr + p.sum(-1)
+        acc[..., q0:, :] = aj * corr[..., None] + pv.view(B, KV, G, S - q0, Dh)
+        m[..., q0:] = m_new
+    lse = m + torch.log(torch.clamp(l, min=1e-30))
+    out = acc / torch.clamp(l[..., None], min=1e-30)  # (B, KV, G, S, Dh)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, Dh).to(q.dtype), lse.view(B, KV, G * S)
+
+
+def _flash_bwd(q, k, v, out, lse, dout, chunk: int, bidirectional: bool):
+    """The flash backward: each block's scores recomputed from ``lse``,
+    ``Dsum`` = rowsum(dout·out), masked with ``isfinite(s)``; dk and dv of
+    the G query heads of a KV head summed into it."""
+    B, S, H, Dh = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    c = _pick_chunk(S, chunk)
+    scale = 1.0 / math.sqrt(Dh)
+    qh, kh, vh = _heads_first(q, k, v)
+    do = dout.to(F32).permute(0, 2, 1, 3).reshape(B, KV, G * S, Dh)
+    dsum = (dout.to(F32) * out.to(F32)).sum(-1).permute(0, 2, 1).reshape(B, KV, G * S)
+    pos = torch.arange(S, device=q.device)
+    dq = torch.zeros_like(qh)
+    dk, dv = torch.zeros_like(kh), torch.zeros_like(vh)
+    for j in range(S // c):
+        q0 = 0 if bidirectional else j * c
+        sel = (slice(None), slice(None), slice(None), slice(q0, None))
+
+        def rows(t):  # the query rows from q0 on, of a (B, KV, G·S, ...) tensor
+            return t.view(B, KV, G, S, *t.shape[3:])[sel].reshape(B, KV, G * (S - q0), *t.shape[3:])
+
+        kj, vj = kh[:, :, j * c:(j + 1) * c], vh[:, :, j * c:(j + 1) * c]
+        qr, dor = rows(qh), rows(do)
+        s = _scores(qr, kj, scale, pos[q0:], pos[j * c:(j + 1) * c], bidirectional)
+        p = torch.where(torch.isfinite(s), torch.exp(s - rows(lse[..., None])), 0.0)
+        dv[:, :, j * c:(j + 1) * c] = p.transpose(-1, -2) @ dor
+        ds = p * (dor @ vj.transpose(-1, -2) - rows(dsum[..., None])) * scale
+        dq.view(B, KV, G, S, Dh)[sel] += (ds @ kj).view(B, KV, G, S - q0, Dh)
+        dk[:, :, j * c:(j + 1) * c] = ds.transpose(-1, -2) @ qr
+    dq = dq.view(B, KV, G, S, Dh).permute(0, 3, 1, 2, 4).reshape(B, S, H, Dh)
+    return dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype), dv.permute(0, 2, 1, 3).to(v.dtype)
+
+
+class CausalFlash(torch.autograd.Function):
+    """:func:`causal_flash` under autograd: the forward saves (q, k, v, out,
+    lse), the backward is :func:`_flash_bwd` (the JAX package's custom
+    VJP). Under non-reentrant checkpointing the forward runs again in the
+    backward pass."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, chunk, bidirectional):
+        out, lse = _flash_fwd_impl(q, k, v, chunk, bidirectional)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.chunk, ctx.bidirectional = chunk, bidirectional
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*_flash_bwd(q, k, v, out, lse, dout, ctx.chunk, ctx.bidirectional), None, None)
+
+
+def causal_flash(q, k, v, chunk: int = 1024, bidirectional: bool = False) -> torch.Tensor:
+    """Blockwise (flash) attention. q: (B,S,H,Dh); k, v: (B,S,KV,Dh),
+    H % KV == 0. Scores and the running sums in f32; the probabilities are
+    cast to v's dtype before the PV product, as the JAX package does.
+    Returns (B,S,H,Dh) in q's dtype. Under grad mode with an input that
+    requires grad it runs as :class:`CausalFlash`, else as one forward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return CausalFlash.apply(q, k, v, chunk, bidirectional)
+    return _flash_fwd_impl(q, k, v, chunk, bidirectional)[0]
+
+
+def _rope_qk(q, k, positions, cfg):
+    if cfg.mrope or cfg.learned_pos:
+        raise NotImplementedError(
+            f"{cfg.name}: M-RoPE and learned positions come with ROADMAP Queue A, slice 6b part 3")
+    return rope_apply(q, positions, cfg.rope_theta), rope_apply(k, positions, cfg.rope_theta)
+
+
+def attention_train(p: dict, x, cfg, positions=None, chunk: int = 1024, bidirectional: bool = False,
+                    collect_kv: bool = False):
+    """Self attention of x (B, S, d) with RoPE at ``positions`` (default
+    0..S-1). Returns out (B, S, d), and with ``collect_kv`` also (k, v)
+    after RoPE, as a prefill caches them."""
+    B, S, _ = x.shape
+    q, k, v = qkv_project(p, x, cfg)
+    pos = positions if positions is not None else torch.arange(S, device=x.device)[None, :]
+    q, k = _rope_qk(q, k, pos, cfg)
+    o = causal_flash(q, k, v, chunk, bidirectional)
+    out = o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+    return (out, (k, v)) if collect_kv else out
+
+
+def attention_decode(p: dict, x, cache_k, cache_v, cur_index: int, cfg, positions=None):
+    """One token x (B, 1, d) against a KV cache (B, T, KV, Dh) holding
+    ``cur_index`` tokens. The new K and V are written at ``cur_index`` into
+    ``cache_k`` / ``cache_v`` themselves (the JAX package returns updated
+    copies); keys past ``cur_index`` are masked. Returns (out (B, 1, d),
+    cache_k, cache_v)."""
+    B = x.shape[0]
+    T = cache_k.shape[1]
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = qkv_project(p, x, cfg)
+    pos = positions if positions is not None else torch.full((B, 1), cur_index, device=x.device)
+    q, k = _rope_qk(q, k, pos, cfg)
+    cache_k[:, cur_index] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, cur_index] = v[:, 0].to(cache_v.dtype)
+    qg = q.reshape(B, KV, H // KV, Dh).to(F32)
+    s = (qg @ cache_k.to(F32).permute(0, 2, 3, 1)) / math.sqrt(Dh)  # (B, KV, G, T)
+    valid = torch.arange(T, device=x.device) <= cur_index
+    a = torch.softmax(s.masked_fill(~valid, -math.inf), dim=-1)
+    o = a.to(cache_v.dtype).to(F32) @ cache_v.to(F32).permute(0, 2, 1, 3)  # (B, KV, G, Dh)
+    o = o.reshape(B, 1, H * Dh).to(x.dtype)
+    return o @ p["wo"].to(x.dtype), cache_k, cache_v
+
+
+# --------------------------------------------------------------------------
+# MLP
+# --------------------------------------------------------------------------
+
+def mlp_init(gen: torch.Generator, d: int, ff: int, gated: bool, dtype=F32) -> dict:
+    p = {"up": dense_init(gen, d, ff, dtype), "down": dense_init(gen, ff, d, dtype)}
+    if gated:
+        p["gate"] = dense_init(gen, d, ff, dtype)
+    return p
+
+
+def mlp_apply(p: dict, x, act: str, gated: bool):
+    u = x @ p["up"].to(x.dtype)
+    h = _act(x @ p["gate"].to(x.dtype), act) * u if gated else _act(u, act)
+    return h @ p["down"].to(x.dtype)
+
+
+def _act(x, name: str):
+    if name == "silu":
+        return F.silu(x)
+    if name == "gelu":  # jax.nn.gelu's default is the tanh form
+        return F.gelu(x, approximate="tanh")
+    if name == "relu2":
+        r = F.relu(x)
+        return r * r
+    raise ValueError(name)
+
+
+# --------------------------------------------------------------------------
+# losses
+# --------------------------------------------------------------------------
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, mask: Optional[torch.Tensor] = None,
                  z_loss: float = 0.0) -> torch.Tensor:

@@ -17,11 +17,10 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from repro_torch.core.decode_torch import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models.layers import F32, dense_init, rmsnorm
+from repro_torch.models.layers import F32, Params, dense_init, rmsnorm
 
 #: the mixer's matrices, ``(d_in, d_out)``, applied as ``x @ W``
 MATRICES = ("in_z", "in_x", "in_bc", "dt_w", "out_proj")
@@ -50,47 +49,14 @@ def ssm_init(gen: torch.Generator, cfg, dtype=F32) -> dict:
     }
 
 
-def cast_once(cache: dict, named: dict, dtype) -> dict:
-    """``named`` tensors in ``dtype``, as a per-call ``.to(dtype)`` gives them.
-
-    With grad mode off, each cast is made once and kept in ``cache`` until
-    the tensor changes in place (its version counter moves), so serving
-    casts no weight per step. With grad mode on, the cast is made afresh,
-    so gradients flow to the f32 parameters."""
-    if torch.is_grad_enabled():
-        return {k: v.to(dtype) for k, v in named.items()}
-    out = {}
-    for k, v in named.items():
-        if v.dtype == dtype:
-            out[k] = v
-            continue
-        key = (k, dtype)
-        stamp = (v.data_ptr(), v._version)
-        hit = cache.get(key)
-        if hit is None or hit[0] != stamp:
-            hit = (stamp, v.detach().to(dtype))
-            cache[key] = hit
-        out[k] = hit[1]
-    return out
-
-
-class Mamba2Mixer(nn.Module):
-    """The Mamba2 mixer's parameters, under the JAX package's names."""
+class Mamba2Mixer(Params):
+    """The Mamba2 mixer's parameters, under the JAX package's names.
+    ``params(dtype)`` gives them as :func:`ssm_forward` takes them: the
+    matrices in the compute ``dtype`` (one copy kept per dtype, see
+    :func:`~repro_torch.models.layers.cast_once`), the vectors in f32."""
 
     def __init__(self, p: dict) -> None:
-        super().__init__()
-        for k, v in p.items():
-            self.register_parameter(k, nn.Parameter(v))
-        self._casts: dict = {}
-
-    def params(self, dtype) -> dict:
-        """Parameters as :func:`ssm_forward` takes them: matrices in the
-        compute ``dtype`` (one copy kept per dtype, see :func:`cast_once`),
-        vectors in f32."""
-        named = dict(self.named_parameters())
-        out = dict(named)
-        out.update(cast_once(self._casts, {k: named[k] for k in MATRICES}, dtype))
-        return out
+        super().__init__(p, cast=MATRICES)
 
 
 def _causal_conv(x, w, state=None):

@@ -109,9 +109,11 @@ class ServeConfig:
 
 
 class ServingEngine:
-    """Padded-slot prefill + decode loop over one model, on the device of
-    its parameters (``lm.init_params`` builds on ``cuda`` unless asked for
-    the CPU).
+    """Padded-slot prefill + decode loop over one model of any ported
+    family (``lm.init_params``: ssm, dense or hybrid; it builds on ``cuda``
+    unless asked for the CPU), on the device of its parameters. The
+    prompts are left-padded into their slots; the pad positions are valid
+    attention keys, as in the JAX package.
 
     Each engine owns its own :class:`ServeConfig` (``sc=None`` constructs a
     per-instance default — a shared default instance would alias sampling
@@ -119,7 +121,7 @@ class ServingEngine:
     ``torch.Generator`` seeded with ``sc.seed``; its bits differ from
     ``jax.random``'s, greedy decoding does not depend on them."""
 
-    def __init__(self, cfg, model: lm.Mamba2LM, sc: Optional[ServeConfig] = None) -> None:
+    def __init__(self, cfg, model: torch.nn.Module, sc: Optional[ServeConfig] = None) -> None:
         self.cfg = cfg
         self.model = model
         self.sc = sc if sc is not None else ServeConfig()

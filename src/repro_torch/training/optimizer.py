@@ -53,9 +53,36 @@ def adamw_init(params: dict) -> dict:
 
 
 def global_norm(tree: dict) -> torch.Tensor:
-    """sqrt of the sum of squares over every leaf, in f32."""
-    norms = torch._foreach_norm([g.to(F32) for g in tree.values()])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    """sqrt of the sum of squares over every leaf, in f32. On the card one
+    multi-tensor ``_foreach_norm`` (a tree reduction, a few launches for all
+    leaves); on the CPU each leaf's ``sum(square(g))``, pairwise-summed as
+    the reference computes it (the CPU's ``vector_norm`` and
+    ``_foreach_norm`` drift by ~1e-3 relative on a leaf of ~1e8 elements,
+    such as qwen2-1.5b's embedding)."""
+    gs = [g.to(F32) for g in tree.values()]
+    if gs[0].is_cuda:
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
+    return torch.sqrt(sum(torch.sum(torch.square(g)) for g in gs))
+
+
+#: parameters' elements a run of ``_foreach`` calls takes at once (1 GiB in
+#: f32): bounds the update's temporaries, which would otherwise reach a few
+#: times the model's size (~38 GB of them for zamba2-2.7b)
+CHUNK_ELEMS = 1 << 28
+
+
+def _chunks(names: list, params: dict):
+    """``names`` split into runs of at most CHUNK_ELEMS elements (a larger
+    parameter runs alone)."""
+    run, n = [], 0
+    for k in names:
+        if run and n + params[k].numel() > CHUNK_ELEMS:
+            yield run
+            run, n = [], 0
+        run.append(k)
+        n += params[k].numel()
+    if run:
+        yield run
 
 
 @torch.no_grad()
@@ -63,30 +90,35 @@ def adamw_update(c: AdamWConfig, grads: dict, opt: dict, params: dict):
     """One AdamW step; returns (params, new_opt, metrics).
 
     ``params`` ({name: tensor}) and the moments of ``opt`` are updated in
-    place; the returned ``opt`` holds those moments and a new step."""
+    place; the returned ``opt`` holds those moments and a new step. The
+    element ops run over runs of parameters (``CHUNK_ELEMS``): the same
+    arithmetic on every element, with temporaries the size of a run."""
     step = opt["step"] + 1
     gn = global_norm(grads)
     lr = schedule(c, step)
     stepf = step.to(F32)
     b1c = 1 - c.b1**stepf
     b2c = 1 - c.b2**stepf
-    names = list(params)
-    ps = [params[k] for k in names]
-    gs = [grads[k].to(F32) for k in names]
-    ms = [opt["m"][k] for k in names]
-    vs = [opt["v"][k] for k in names]
-    if c.grad_clip:
-        gs = torch._foreach_mul(gs, torch.clamp(c.grad_clip / torch.clamp(gn, min=1e-9), max=1.0))
-    torch._foreach_mul_(ms, c.b1)
-    torch._foreach_add_(ms, torch._foreach_mul(gs, 1 - c.b1))
-    torch._foreach_mul_(vs, c.b2)
-    torch._foreach_add_(vs, torch._foreach_mul(torch._foreach_mul(gs, 1 - c.b2), gs))
-    den = torch._foreach_div(vs, b2c)
-    torch._foreach_sqrt_(den)
-    torch._foreach_add_(den, c.eps)
-    upd = torch._foreach_div(ms, b1c)
-    torch._foreach_div_(upd, den)
-    torch._foreach_add_(upd, torch._foreach_mul(ps, c.weight_decay))
-    torch._foreach_mul_(upd, lr)
-    torch._foreach_sub_(ps, upd)
+    clip = torch.clamp(c.grad_clip / torch.clamp(gn, min=1e-9), max=1.0) if c.grad_clip else None
+    for names in _chunks(list(params), params):
+        ps = [params[k] for k in names]
+        gs = [grads[k].to(F32) for k in names]
+        ms = [opt["m"][k] for k in names]
+        vs = [opt["v"][k] for k in names]
+        if clip is not None:
+            gs = torch._foreach_mul(gs, clip)
+        torch._foreach_mul_(ms, c.b1)
+        torch._foreach_add_(ms, torch._foreach_mul(gs, 1 - c.b1))
+        torch._foreach_mul_(vs, c.b2)
+        torch._foreach_add_(vs, torch._foreach_mul(torch._foreach_mul(gs, 1 - c.b2), gs))
+        del gs
+        den = torch._foreach_div(vs, b2c)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, c.eps)
+        upd = torch._foreach_div(ms, b1c)
+        torch._foreach_div_(upd, den)
+        del den
+        torch._foreach_add_(upd, torch._foreach_mul(ps, c.weight_decay))
+        torch._foreach_mul_(upd, lr)
+        torch._foreach_sub_(ps, upd)
     return params, {"m": opt["m"], "v": opt["v"], "step": step}, {"grad_norm": gn, "lr": lr}

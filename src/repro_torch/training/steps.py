@@ -32,7 +32,7 @@ F32 = torch.float32
 class TrainOptions:
     remat: bool = True
     remat_policy: str = "nothing"  # nothing | dots
-    chunk: int = 1024  # attention block size (unused by the SSM family)
+    chunk: int = 1024  # attention block size
     aux_coeff: float = 0.01
     microbatch: int = 0  # 0 = no accumulation
     grad_compress: Optional[str] = None  # None | "bf16" | "int16_ef"
@@ -46,7 +46,7 @@ def loss_fn(model, cfg, batch: dict, opts: TrainOptions):
     if extra:
         raise NotImplementedError(
             f"batch inputs {extra} belong to the vlm / encdec families, which come with "
-            f"ROADMAP Queue A, slice 6b part 2: the other LM families and their training")
+            f"ROADMAP Queue A, slice 6b part 3: the moe, vlm and encdec families")
     logits, aux = lm.forward(model, cfg, batch["tokens"], remat=opts.remat,
                              remat_policy=opts.remat_policy, chunk=opts.chunk)
     loss = softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
@@ -80,8 +80,10 @@ def _grads(model, cfg, batch: dict, opts: TrainOptions):
 
 
 def _stacked(name: str) -> str:
-    """The JAX package's leaf of a parameter: ``layers.<i>.k`` -> ``layers.k``."""
-    return re.sub(r"^layers\.\d+\.", "layers.", name)
+    """The JAX package's leaf of a parameter: ``layers.<i>.k`` and the
+    hybrid's ``layers.<g>.<j>.k`` -> ``layers.k``; ``shared_attn.*`` and the
+    rest are leaves of their own."""
+    return re.sub(r"^layers\.\d+\.(?:\d+\.)?", "layers.", name)
 
 
 def _compress_grads(g: dict, how: Optional[str], ef: Optional[dict] = None):
@@ -89,8 +91,8 @@ def _compress_grads(g: dict, how: Optional[str], ef: Optional[dict] = None):
     reduction; returns (gradients, error feedback). ``int16_ef``: int8-range
     quantisation carried in int16 (round half to even, as ``jnp.round``)
     with one scale a JAX-package leaf (a layer parameter shares it across
-    the layers, whose leaf is stacked there), the residual fed back into
-    the next step."""
+    the layers, and the hybrid's across groups and layers, whose leaf is
+    stacked there), the residual fed back into the next step."""
     if how is None:
         return g, ef
     if how == "bf16":

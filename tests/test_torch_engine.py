@@ -1,12 +1,15 @@
 """The port's serving path (``prompts_from_store`` -> ``ServingEngine``)
 against the JAX package's on the same SageFile and the same weights
-(``mamba2-370m`` reduced, JAX weights carried across by ``convert``).
+(``mamba2-370m`` reduced, and qwen2-1.5b and zamba2-2.7b reduced for the
+dense and hybrid families; JAX weights carried across by ``convert``).
 
 Teacher-forced logits (both models fed the JAX engine's tokens) agree
 within 5e-2 at every step. Greedy tokens are compared step for step, per
 prompt, for as long as the JAX model's top-2 margin exceeds twice the
 logit difference between the two models: past that, bf16 rounding at other
 places may rightly pick the other token."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -45,13 +48,13 @@ def stores():
     return ours.session(), theirs.session()
 
 
-def make_models(embed_scale=1.0):
-    """Both packages' reduced mamba2-370m with the same weights (JAX's init,
-    the tied embedding scaled by ``embed_scale``)."""
-    jcfg = jax_arch("mamba2-370m").reduced()
-    cfg = get_arch("mamba2-370m").reduced()
+def make_models(embed_scale=1.0, arch="mamba2-370m"):
+    """Both packages' reduced ``arch`` with the same weights (JAX's init,
+    the embedding and an untied head scaled by ``embed_scale``)."""
+    jcfg = jax_arch(arch).reduced()
+    cfg = get_arch(arch).reduced()
     params = JLM.init_params(jax.random.PRNGKey(11), jcfg)
-    params = {**params, "embed": params["embed"] * embed_scale}
+    params = {**params, **{k: params[k] * embed_scale for k in ("embed", "lm_head") if k in params}}
     model = lm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     model.load_state_dict(lm_params_from_reference(cfg, jax.tree.map(np.asarray, params)))
     return jcfg, params, cfg, model
@@ -145,13 +148,15 @@ def engines_and_logits(jcfg, params, cfg, model, prompts, sc):
     want = np.stack(RefEngine(jcfg, params, RefServeConfig(**sc)).generate(prompts))
     cuda_lib.reset_counts()
     got = np.stack(ServingEngine(cfg, model, ServeConfig(**sc)).generate(prompts))
-    # one SSD launch (plain on the CPU) per layer for the prefill and each decode step
-    assert cuda_lib.counts() == {"plain:ssd_intra": cfg.n_layers * sc["max_new"]}
+    # one SSD launch (plain on the CPU) per Mamba2 layer for the prefill and each decode step
+    n_ssd = cfg.n_layers * sc["max_new"] if cfg.family in ("ssm", "hybrid") else 0
+    assert cuda_lib.counts() == ({"plain:ssd_intra": n_ssd} if n_ssd else {})
     toks = slots(prompts, sc["max_prompt"])
     max_len = sc["max_prompt"] + sc["max_new"] + 1
+    j_step = jax.jit(JLM.decode_step, static_argnums=(1,))  # one compile for every step
     j_logits = teacher_forced(
         lambda tok, c, i: (lambda lg, c2: (np.asarray(lg[:, -1], np.float32), c2))(
-            *JLM.decode_step(params, jcfg, jnp.asarray(tok), c, jnp.int32(i))),
+            *j_step(params, jcfg, jnp.asarray(tok), c, jnp.int32(i))),
         lambda tk: (lambda lg, c: (np.asarray(lg[:, -1], np.float32), c))(
             *JLM.prefill(params, jcfg, jnp.asarray(tk), max_len)),
         toks, want)
@@ -182,15 +187,30 @@ def test_teacher_forced_logits_match_reference(stores, models):
 
 
 def test_greedy_generation_matches_reference(stores):
+    """Greedy tokens equal JAX's wherever the choice is decided (see
+    ``greedy_matches``), mamba2-370m with the tied embedding scaled x50."""
+    greedy_matches(stores, "mamba2-370m", 50.0)
+
+
+@pytest.mark.parametrize("arch,scale", [("qwen2-1.5b", 50.0), ("zamba2-2.7b", 20.0)])
+def test_family_greedy_generation_matches_reference(stores, arch, scale):
+    """``greedy_matches`` for the dense (qwen2-1.5b: tied, QKV biases) and
+    hybrid (zamba2-2.7b: its embedding and untied head scaled x20)
+    families."""
+    greedy_matches(stores, arch, scale)
+
+
+def greedy_matches(stores, arch, scale):
     """Greedy tokens equal JAX's wherever the choice is decided: per prompt,
     up to the first step whose JAX top-2 margin is within twice the largest
     logit difference between the two models at that step (past it, bf16
-    rounding may rightly flip the choice). The tied embedding is scaled x50
-    (std 1) so the choices are separated as a trained model's are: at the
-    init scale every prompt's top-2 margin is below the logits' tolerance
-    from the first step, and the comparison would be empty."""
+    rounding may rightly flip the choice). The embedding (and an untied
+    head) is scaled so the choices are separated as a trained model's are:
+    at the init scale every prompt's top-2 margin is below the logits'
+    tolerance from the first step, and the comparison would be empty.
+    Left-padded slots are valid attention keys in both packages."""
     ours_s, theirs_s = stores
-    jcfg, params, cfg, model = make_models(embed_scale=50.0)
+    jcfg, params, cfg, model = make_models(embed_scale=scale, arch=arch)
     prompts = prompts_from_store(ours_s, "ds", vocab=cfg.vocab, n_prompts=4, block_range=(0, 3))
     want, got, lj, lt = engines_and_logits(jcfg, params, cfg, model, prompts, SC)
     scale = np.abs(lj).max()
@@ -204,6 +224,25 @@ def test_greedy_generation_matches_reference(stores):
     for i, n in enumerate(n_cmp):
         np.testing.assert_array_equal(got[i, :n], want[i, :n], err_msg=f"prompt {i}")
     assert sum(n_cmp) >= want.size // 2, n_cmp  # the comparison is not empty
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "zamba2-2.7b"])
+def test_greedy_generation_matches_reference_f32(stores, arch, monkeypatch):
+    """Both engines with f32 activations (prefill and decode_step patched on
+    both sides): every prompt's greedy tokens equal JAX's at every step,
+    and the logits agree within 1e-4 (sums in another order); at the
+    init scale the top-2 margins stay far above that."""
+    ours_s, _ = stores
+    jcfg, params, cfg, model = make_models(arch=arch)
+    for mod, dt in ((JLM, jnp.float32), (lm, torch.float32)):
+        monkeypatch.setattr(mod, "prefill", functools.partial(mod.prefill, dtype=dt))
+        monkeypatch.setattr(mod, "decode_step", functools.partial(mod.decode_step, dtype=dt))
+    prompts = prompts_from_store(ours_s, "ds", vocab=cfg.vocab, n_prompts=4, block_range=(0, 3))
+    want, got, lj, lt = engines_and_logits(jcfg, params, cfg, model, prompts, SC)
+    np.testing.assert_allclose(lt, lj, rtol=1e-4, atol=1e-4)
+    top2 = np.sort(lj, axis=-1)[..., -2:]
+    assert float((top2[..., 1] - top2[..., 0]).min()) > 2e-4  # every choice is decided
+    np.testing.assert_array_equal(got, want)
 
 
 def test_serve_config_not_shared_between_engines(models):

@@ -16,6 +16,11 @@ banded-alignment DP's cases alone:
 B6's backward kernel and the training step on the card:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_kernels.py -k "bwd or train"
+
+The attention and the dense and hybrid families (qwen2-1.5b, zamba2-2.7b
+depth cuts at full width) against the CPU:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_kernels.py -k "flash or family"
 """
 
 import dataclasses
@@ -681,6 +686,22 @@ def test_train_step_on_card_matches_cpu(cuda):
         torch.backends.cuda.matmul.allow_tf32 = was
 
 
+def test_global_norm_on_card_is_accurate_and_the_cpus(cuda):
+    """The card's global norm (one multi-tensor ``_foreach_norm``) lies
+    within 1e-6 of the float64 value on a leaf of 2^25 elements beside
+    many small leaves, and within 1e-6 of the CPU's on the same leaves."""
+    from repro_torch.training import optimizer as TO
+
+    r = np.random.default_rng(13)
+    tree = {"embed": (r.standard_normal(1 << 25) * 1e-3).astype(np.float32)}
+    tree.update({f"l{i}": r.standard_normal(1 + 97 * i).astype(np.float32) for i in range(300)})
+    exact = np.sqrt(sum(float(np.square(v.astype(np.float64)).sum()) for v in tree.values()))
+    card = float(TO.global_norm({k: torch.from_numpy(v).to(cuda) for k, v in tree.items()}))
+    cpu = float(TO.global_norm({k: torch.from_numpy(v) for k, v in tree.items()}))
+    assert abs(card - exact) <= 1e-6 * exact, (card, exact)
+    assert abs(card - cpu) <= 1e-6 * exact, (card, cpu)
+
+
 def test_ssd_on_card_matches_cpu(cuda):
     """ops.ssd (B6 + the recurrence across chunks) on the card against the
     same call on the CPU (plain): a ragged last chunk and an initial state.
@@ -701,6 +722,90 @@ def test_ssd_on_card_matches_cpu(cuda):
     assert DT.trace_counts() == {"launch:ssd_intra": 1}
     for a, b in zip(got, want):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------- the dense and hybrid families on the card
+@pytest.mark.parametrize("bidirectional", [False, True], ids=["causal", "bidir"])
+def test_causal_flash_on_card_matches_cpu(cuda, bidirectional):
+    """The attention (plain torch ops, the same code on both devices) on the
+    card against the CPU at qwen2-1.5b's head shape (12 / 2 heads of 128,
+    f32, 2 x 300 tokens in KV blocks of 100): the output and dq, dk, dv
+    within 1e-4·max (f32 sums in another order; TF32 off)."""
+    from repro_torch.models import layers as L
+
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        g = torch.Generator().manual_seed(7)
+        q, dout = (torch.randn((2, 300, 12, 128), generator=g) for _ in range(2))
+        k, v = (torch.randn((2, 300, 2, 128), generator=g) for _ in range(2))
+
+        def run(dev):
+            t = [x.to(dev).requires_grad_() for x in (q, k, v)]
+            out = L.causal_flash(*t, 128, bidirectional)
+            return (out.detach(), *torch.autograd.grad(out, t, dout.to(dev)))
+
+        for a, b in zip(run(cuda), run("cpu")):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+
+
+@pytest.mark.parametrize("arch,layers", [("qwen2-1.5b", 2), ("zamba2-2.7b", 6)])
+def test_family_prefill_and_decode_on_card_match_cpu(cuda, arch, layers):
+    """A depth cut of qwen2-1.5b (2 layers) and zamba2-2.7b (one group of 6
+    Mamba2 layers and the shared block) at full width: f32 prefill of
+    2 x 96 tokens into 100 slots and four decode steps, logits and every
+    cache tensor within 1e-3 of the CPU's (TF32 off; B6 on the card, its
+    plain version on the CPU)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+
+    from train_cases import cut_models
+
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cut, m_dev, m_cpu = cut_models(get_arch(arch), layers, cuda, seed=3)
+        toks = torch.as_tensor(np.random.default_rng(4).integers(0, cut.vocab, (2, 100)))
+        outs = []
+        for m, dev in ((m_dev, cuda), (m_cpu, "cpu")):
+            lg, cache = lm.prefill(m, cut, toks[:, :96].to(dev), 100, dtype=torch.float32)
+            got = [lg]
+            for t in range(96, 100):
+                lg, cache = lm.decode_step(m, cut, toks[:, t:t + 1].to(dev), cache, t, dtype=torch.float32)
+                got.append(lg)
+            got += [cache["k"], cache["v"]] + [cache["ssm"][kk] for kk in sorted(cache.get("ssm", {}))]
+            outs.append(got)
+        for a, b in zip(*outs):
+            torch.testing.assert_close(a.cpu().float(), b.float(), rtol=1e-3, atol=1e-3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+
+
+@pytest.mark.parametrize("arch,layers", [("qwen2-1.5b", 2), ("zamba2-2.7b", 6)])
+def test_family_train_step_on_card_matches_cpu(cuda, arch, layers):
+    """One make_train_step of a full-width depth cut (2 x 256 tokens, remat
+    on, f32 activations, TF32 off) on the card against the CPU within
+    tests/train_cases.py's bounds; the hybrid's card path launches B6
+    forward twice a Mamba2 layer and backward once, the dense one no
+    kernel, and neither a plain version."""
+    from repro_torch.configs import get_arch
+
+    from train_cases import compare_step, cut_batch, cut_models, one_step
+
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cut, m_dev, m_cpu = cut_models(get_arch(arch), layers, cuda, seed=1)
+        batch = cut_batch(cut, 2, 256, seed=2)
+        DT.reset_trace_counts()
+        card = one_step(cut, m_dev, batch, cuda)
+        n = layers if cut.family == "hybrid" else 0
+        assert DT.trace_counts() == ({"launch:ssd_intra": 2 * n, "launch:ssd_intra_bwd": n} if n else {})
+        compare_step(card, one_step(cut, m_cpu, batch, "cpu"))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
 
 
 # ------------------------------------------------------- banded-alignment DP

@@ -1,6 +1,9 @@
-"""The port's Mamba2 LM (``mamba2-370m`` reduced: 2 layers, d_model 64,
-N 16, chunk 16) against the JAX package's, with the JAX package's weights
-carried across by ``convert.lm_params_from_reference``.
+"""The port's LMs against the JAX package's, with the JAX package's weights
+carried across by ``convert.lm_params_from_reference``: the Mamba2 LM
+(``mamba2-370m`` reduced: 2 layers, d_model 64, N 16, chunk 16), and the
+dense (qwen2-1.5b, yi-9b, yi-34b, minitron-8b) and hybrid (zamba2-2.7b)
+families at ``ArchConfig.reduced()`` (2 layers, d_model 64, 4 heads of 16;
+zamba2 one group of 2 Mamba2 layers and the shared block).
 
 Tolerances: f32 rtol = atol = 1e-4 (sums in another order); bf16 5e-2,
 because bf16 rounds at other places in XLA's fused conv sum and in eager
@@ -9,6 +12,7 @@ the state term; the step-by-step-decode duality check 2e-2, as in
 tests/test_arch_smoke.py."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -217,12 +221,162 @@ def test_weight_casts_are_kept_and_refreshed(models):
     assert mixer.params(torch.bfloat16)["in_x"].requires_grad  # grad mode: a fresh, tracked cast
 
 
-@pytest.mark.parametrize("arch", sorted(a for a, c in ARCHS.items() if c.family != "ssm"))
+@pytest.mark.parametrize("arch", sorted(a for a, c in ARCHS.items() if c.family not in lm.MODELS))
 def test_other_families_raise(arch):
+    """moe (x2), vlm and encdec are not ported: the entry points raise
+    naming slice 6b part 3."""
     cfg = ARCHS[arch].reduced()
-    with pytest.raises(NotImplementedError, match="slice 6b"):
+    with pytest.raises(NotImplementedError, match="slice 6b part 3"):
         lm.init_params(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="slice 6b"):
+    with pytest.raises(NotImplementedError, match="slice 6b part 3"):
         lm.init_cache(cfg, batch=1, max_len=8)
-    with pytest.raises(NotImplementedError, match="slice 6b"):
+    with pytest.raises(NotImplementedError, match="slice 6b part 3"):
         lm_params_from_reference(cfg, {})
+
+
+# ------------------------------------------------ the dense and hybrid families
+FAMILY_ARCHS = ["qwen2-1.5b", "yi-9b", "yi-34b", "minitron-8b", "zamba2-2.7b"]
+
+
+@functools.cache
+def family_models(arch: str):
+    """Both packages' reduced ``arch`` with the same weights (JAX's init;
+    qwen2's zero QKV biases redrawn so the tests see them) and the jitted
+    reference entry points."""
+    jcfg, cfg = JARCHS[arch].reduced(), get_arch(arch).reduced()
+    params = JLM.init_params(jax.random.PRNGKey(7), jcfg)
+    if jcfg.qkv_bias:
+        r = np.random.default_rng(1)
+        params = jax.tree_util.tree_map_with_path(
+            lambda path, a: jnp.asarray(r.standard_normal(a.shape).astype(np.float32) * 0.5)
+            if str(path[-1].key).startswith("b") else a, params)
+    model = lm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    model.load_state_dict(lm_params_from_reference(cfg, jax.tree.map(np.asarray, params)))
+    fns = {"forward": jax.jit(JLM.forward, static_argnums=(1,), static_argnames=("remat", "chunk", "dtype")),
+           "prefill": jax.jit(JLM.prefill, static_argnums=(1, 3), static_argnames=("chunk", "dtype")),
+           "decode": jax.jit(JLM.decode_step, static_argnums=(1,), static_argnames=("dtype",))}
+    return jcfg, params, cfg, model, fns
+
+
+def test_family_models_match_reference_layout():
+    """Every family's state_dict names map one to one onto the JAX
+    package's leaves: qwen2 tied with biases, yi and minitron untied,
+    minitron's non-gated MLP, zamba2's (groups, attn_every) layers and its
+    shared block."""
+    for arch in FAMILY_ARCHS:
+        jcfg, params, cfg, model, _ = family_models(arch)
+        sd = model.state_dict()
+        n_leaves = sum(int(np.prod(np.asarray(a).shape)) for a in jax.tree.leaves(params))
+        assert sum(v.numel() for v in sd.values()) == n_leaves, arch
+        assert ("lm_head" in sd) == (not cfg.tie_embeddings)
+        assert ("layers.0.mlp.gate" in sd) == (cfg.family == "dense" and cfg.gated_mlp)
+    _, _, zcfg, zmodel, _ = family_models("zamba2-2.7b")
+    assert isinstance(zmodel, lm.HybridLM) and len(zmodel.layers) == 1 and len(zmodel.layers[0]) == 2
+    assert "layers.0.1.ssm.in_x" in zmodel.state_dict() and "shared_attn.mlp.gate" in zmodel.state_dict()
+    assert isinstance(family_models("qwen2-1.5b")[3], lm.DenseLM)
+
+
+@pytest.mark.parametrize("dtype", sorted(DT))
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_forward_matches_reference(arch, dtype):
+    """Training-forward logits of 2 x 40 tokens with an attention chunk of
+    16 (a ragged block split: 10 of 40)."""
+    jcfg, params, cfg, model, fns = family_models(arch)
+    jdt, tdt, tol = DT[dtype]
+    toks = tokens(cfg, (2, 40), seed=8)
+    lj, _ = fns["forward"](params, jcfg, jnp.asarray(toks), remat=False, chunk=16, dtype=jdt)
+    with torch.no_grad():
+        lt, aux = lm.forward(model, cfg, torch.from_numpy(toks).long(), chunk=16, dtype=tdt)
+    assert aux == 0.0 and lt.shape == (2, 40, cfg.vocab) and lt.dtype == tdt
+    close(lt, lj, tol)
+
+
+@pytest.mark.parametrize("dtype", sorted(DT))
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_prefill_and_decode_match_reference(arch, dtype):
+    """Prefill of 2 x 40 tokens into 48 slots: the last-token logits and
+    the whole cache (K and V padded to 48 slots; the hybrid's stacked SSM
+    states); then four decode steps' logits and caches."""
+    jcfg, params, cfg, model, fns = family_models(arch)
+    jdt, tdt, tol = DT[dtype]
+    toks = tokens(cfg, (2, 40), seed=5)
+    lj, cj = fns["prefill"](params, jcfg, jnp.asarray(toks), 48, chunk=16, dtype=jdt)
+    lt, ct = lm.prefill(model, cfg, torch.from_numpy(toks).long(), 48, chunk=16, dtype=tdt)
+    assert lt.shape == (2, 1, cfg.vocab) and lt.dtype == tdt
+
+    def same_cache(ct, cj, what):
+        assert sorted(ct) == sorted(cj), what
+        for key in ct:
+            if key == "ssm":
+                close_state(ct["ssm"], cj["ssm"], tol)
+            else:
+                assert tuple(ct[key].shape) == tuple(cj[key].shape) and ct[key].dtype == tdt, key
+                close(ct[key], cj[key], tol)
+
+    close(lt, lj, tol)
+    same_cache(ct, cj, "prefill")
+    nxt = tokens(cfg, (2, 4), seed=6)
+    for t in range(4):
+        lj, cj = fns["decode"](params, jcfg, jnp.asarray(nxt[:, t : t + 1]), cj, jnp.int32(40 + t), dtype=jdt)
+        lt, ct2 = lm.decode_step(model, cfg, torch.from_numpy(nxt[:, t : t + 1]).long(), ct, 40 + t, dtype=tdt)
+        assert ct2 is ct
+        close(lt, lj, tol)
+        same_cache(ct, cj, f"decode step {t}")
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_decode_matches_forward(arch):
+    """The duality, port only, f32: step-by-step decode from an empty cache
+    gives the training forward's logits (chunk 8: 3 KV blocks of 24
+    tokens), and a chunked prefill the cache the steps built, within 2e-2
+    as tests/test_arch_smoke.py holds the reference."""
+    _, _, cfg, model, _ = family_models(arch)
+    T = 24
+    toks = torch.from_numpy(tokens(cfg, (2, T), seed=9)).long()
+    with torch.no_grad():
+        full, _ = lm.forward(model, cfg, toks, chunk=8, dtype=torch.float32)
+    cache = lm.init_cache(cfg, batch=2, max_len=T, dtype=torch.float32, device="cpu")
+    outs = []
+    for t in range(T):
+        lg, cache = lm.decode_step(model, cfg, toks[:, t : t + 1], cache, t, dtype=torch.float32)
+        outs.append(lg[:, 0])
+    close(torch.stack(outs, dim=1), full, 2e-2)
+    _, pre = lm.prefill(model, cfg, toks, T, chunk=8, dtype=torch.float32)
+    for key in ("k", "v"):
+        close(cache[key], pre[key], 2e-2)
+    if "ssm" in pre:
+        close_state(cache["ssm"], pre["ssm"], 2e-2)
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_init_cache_matches_reference(arch):
+    """init_cache: the same keys, shapes and dtypes as the JAX package's
+    (bf16 K and V, f32 SSM states), all zeros, on the CPU when asked."""
+    jcfg, _, cfg, _, _ = family_models(arch)
+    ours = lm.init_cache(cfg, batch=3, max_len=20, device="cpu")
+    theirs = JLM.init_cache(jcfg, batch=3, max_len=20)
+    assert sorted(ours) == sorted(theirs)
+    for key in ("k", "v"):
+        assert tuple(ours[key].shape) == tuple(theirs[key].shape) and ours[key].dtype == torch.bfloat16
+        assert not bool(ours[key].any())
+    if "ssm" in ours:
+        close_state(ours["ssm"], theirs["ssm"], 0)
+        assert all(v.dtype == torch.float32 for v in ours["ssm"].values())
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "zamba2-2.7b"])
+def test_family_decode_step_writes_the_cache_in_place(arch):
+    """decode_step writes the new K and V at cur_index (and the hybrid's
+    new states) into the cache it is given and returns that cache; no slot
+    but cur_index changes."""
+    _, _, cfg, model, _ = family_models(arch)
+    cache = lm.init_cache(cfg, batch=2, max_len=6, device="cpu")
+    ptrs = {k: v.data_ptr() for k, v in cache.items() if k != "ssm"}
+    toks = torch.from_numpy(tokens(cfg, (2, 1), seed=12)).long()
+    _, out = lm.decode_step(model, cfg, toks, cache, 3)
+    assert out is cache and {k: out[k].data_ptr() for k in ptrs} == ptrs
+    for key in ("k", "v"):
+        written = out[key].abs().sum(dim=(0, 1, 3, 4))
+        assert bool(written[3] > 0) and not bool(written[[0, 1, 2, 4, 5]].any()), key
+    if "ssm" in out:
+        assert all(bool(v.abs().sum() > 0) for v in out["ssm"].values())

@@ -6,9 +6,11 @@ and one mixed burst through the JAX package's SageServer and through the
 port's gives the same chunks and the same batcher stats (generate on the
 reduced mamba2-370m, JAX's weights carried across by ``convert``)."""
 
+import functools
 import threading
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -342,11 +344,45 @@ def test_mixed_burst_matches_reference_server(v2_path, models):
     assert stats[0]["generate_batches"] == 1
 
 
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "zamba2-2.7b"])
+def test_generate_through_both_servers_matches_reference(arch, monkeypatch):
+    """The dense (qwen2-1.5b) and hybrid (zamba2-2.7b) families served
+    through both packages' SageServers: a prompt and a store-derived
+    prompt in one padded batch each, f32 activations on both sides
+    (prefill and decode_step patched), JAX's weights carried across; the
+    greedy tokens equal the reference's, token for token."""
+    _, sf = encoded_case("illumina")
+    jcfg, cfg = jax_arch(arch).reduced(), get_arch(arch).reduced()
+    params = JLM.init_params(jax.random.PRNGKey(13), jcfg)
+    model = lm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    model.load_state_dict(lm_params_from_reference(cfg, jax.tree.map(np.asarray, params)))
+    for mod, dt in ((JLM, jnp.float32), (lm, torch.float32)):
+        monkeypatch.setattr(mod, "prefill", functools.partial(mod.prefill, dtype=dt))
+        monkeypatch.setattr(mod, "decode_step", functools.partial(mod.decode_step, dtype=dt))
+    ours = SageServer(SessionPool(device="cpu"), engine=ServingEngine(cfg, model, ServeConfig(**SC)))
+    theirs = RefServer(RefPool(store=RefStore()), engine=RefEngine(jcfg, params, RefServeConfig(**SC)))
+    tokens = []
+    for srv, sfile in ((ours, sage_file_from_reference(sf)), (theirs, sf)):
+        srv.pool.store.register("ds", sfile)
+        hs = [srv.generate(prompt=np.arange(3, 14, dtype=np.int32), priority=1),
+              srv.generate(dataset="ds", block_range=(1, 2), max_prompt=12, kmer_k=3, priority=2)]
+        srv.run_until_idle()
+        assert srv.batcher.stats["generate_batches"] == 1
+        tokens.append([h.result(timeout=0)["tokens"] for h in hs])
+    for mine, want in zip(*tokens):
+        assert mine.shape == (SC["max_new"],)
+        np.testing.assert_array_equal(mine, want)
+
+
 def test_launch_serve_runs_on_the_cpu_and_names_slice_6b(capsys):
+    """The launcher serves mamba2-370m, qwen2-1.5b (dense) and zamba2-2.7b
+    (hybrid) reduced on the CPU; a moe configuration raises, naming slice
+    6b part 3."""
     from repro_torch.launch import serve
 
-    serve.main(["--smoke", "--device", "cpu", "--requests", "2", "--max-new", "4"])
-    out = capsys.readouterr().out
-    assert "served 4 mixed requests (2 generate / 8 tokens, 2 reads)" in out and "req/s on cpu" in out
-    with pytest.raises(NotImplementedError, match="slice 6b"):
-        serve.main(["--arch", "qwen2-1.5b", "--smoke", "--device", "cpu"])
+    for arch in ("mamba2-370m", "qwen2-1.5b", "zamba2-2.7b"):
+        serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests", "2", "--max-new", "4"])
+        out = capsys.readouterr().out
+        assert "served 4 mixed requests (2 generate / 8 tokens, 2 reads)" in out and "req/s on cpu" in out, arch
+    with pytest.raises(NotImplementedError, match="slice 6b part 3"):
+        serve.main(["--arch", "deepseek-moe-16b", "--smoke", "--device", "cpu"])
