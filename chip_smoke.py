@@ -38,7 +38,9 @@ Phases, each printing one JSON line:
            zamba2-2.7b's N = 64, and large-decay cases in f32 and bf16 (TF32
            off for matmul and cuDNN); B6's rows carry the share of the bound
            reached; B6's backward kernel at the train shape (the prefill
-           shape, bf16 x; timed) and in f32, at large decay, Q = 17 and
+           shape, bf16 x; timed, with its plan: CTAs, threads, shared
+           memory, ptxas registers and spills) and in f32, at large decay,
+           Q = 1, 17, 64 and 120 and
            N = 64, against ssd_intra_bwd_plain; the banded-alignment DP on one 1024-lane chunk of the
            batched mapper's Illumina lanes (L 150, band 24) and every case of
            tests/dp_cases.py (widths up to 641), bit for bit, with its plan
@@ -107,7 +109,8 @@ Phases, each printing one JSON line:
            same batches and losses for steps 5-8 within 1e-3; a 2-layer
            full-width cut's step (f32 activations) against the CPU, every
            leaf within tests/train_cases.py's bounds; step ms, tokens/s,
-           peak memory, checkpoint bytes, a profile of one step
+           peak memory, checkpoint bytes, a profile of one step (with
+           B6 backward's device ms and launches inside it)
   dense    qwen2-1.5b at full width (28 layers, d_model 1536, 12 / 2 heads
            of 128, vocab 151936, tied; weights from a seeded generator on
            the card): 8 prompts from an Illumina block through a fused kmer
@@ -129,11 +132,12 @@ Phases, each printing one JSON line:
            the same serving run (B6 once a Mamba2 layer a decode step), the
            same checks on a cut of one group and the shared block, 3
            training steps on tiles 3200-3201 (B6 forward twice and backward
-           once a Mamba2 layer a step), the cut's train step and the
-           attention against the CPU and the library
-Then the kernel table as one JSON line (B1's, B2's, B3's and B5's rows
-with their launch `plan`, B1's and B3's with the launch floor), the card's
-name and power limit,
+           once a Mamba2 layer a step; B6 backward's device ms inside the
+           profiled step), the cut's train step and the attention against
+           the CPU and the library
+Then the kernel table as one JSON line (B1's, B2's, B3's, B5's and B6
+backward's rows with their launch `plan`, B1's and B3's with the launch
+floor), the card's name and power limit,
 and the final {"ok": true, ...} line. Any failure raises (exit code != 0).
 """
 
@@ -188,7 +192,8 @@ try:
     from repro_torch.kernels.banded_align import align_plan, align_rows, dp_inputs
     from repro_torch.kernels.reformat import kmer_plan
     from repro_torch.kernels.sage_decode import launch_plan, unpack_plan
-    from repro_torch.kernels.ssd_chunk import ssd_intra, ssd_intra_bwd, ssd_intra_bwd_plain, ssd_intra_plain
+    from repro_torch.kernels.ssd_chunk import (bwd_plan, ssd_intra, ssd_intra_bwd, ssd_intra_bwd_plain,
+                                               ssd_intra_plain)
     from repro_torch.models import layers as LAYERS
     from repro_torch.models import lm
     from repro_torch.serving import SageServer, ServeConfig, ServingEngine, SessionPool, prompts_from_store
@@ -363,7 +368,7 @@ def annotated(ranges):
             setattr(mod, name, fn)
 
 
-def profile_window(fn, focus: str = "", ranges=()) -> dict:
+def profile_window(fn, focus: str = "", ranges=(), kernels=()) -> dict:
     """Run ``fn(0)`` on the host clock and ``fn(1)``, the same work, under
     torch.profiler: the wall time of the first, the device time of every
     kernel and copy by name in the second, the device busy share (device
@@ -372,7 +377,9 @@ def profile_window(fn, focus: str = "", ranges=()) -> dict:
     with ``focus`` the device time and share of the kernels whose name
     holds it, and with ``ranges`` ((module, function name) pairs, wrapped
     in ``record_function`` for the profiled run only) the device time of
-    the kernels launched inside each function and its share."""
+    the kernels launched inside each function and its share, and for each
+    name in ``kernels`` the device time and launches of the kernels whose
+    name holds it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -397,6 +404,9 @@ def profile_window(fn, focus: str = "", ranges=()) -> dict:
         f_us = sum(t for n, t, _c in rows if focus in n)
         out.update({f"{focus}_ms": f_us / 1e3, f"{focus}_share": f_us / busy_us if busy_us else None,
                     "device_kernels": sum(c for _n, _t, c in rows)})
+    for sub in kernels:
+        out[f"{sub}_ms"] = sum(t for n, t, _c in rows if sub in n) / 1e3
+        out[f"{sub}_launches"] = sum(c for n, _t, c in rows if sub in n)
     for name in names:  # the kernels launched inside each call of the function, from the host's events
         r_us = sum(e.device_time_total for e in prof.events()
                    if e.name == name and e.device_type == DeviceType.CPU)
@@ -1307,7 +1317,7 @@ def train_phase(dev, cfg, src: SageFile, oracle: "Oracle") -> int:
         b = {kk: torch.as_tensor(v).to(dev) for kk, v in next(t1.data).items()}
         return t1.step_fn(t1.model, t1.opt, b)[2]["loss"]
 
-    prof = profile_window(one_step_of_run, focus="ssd")
+    prof = profile_window(one_step_of_run, focus="ssd", kernels=("ssd_bwd",))
     del t1
     torch.cuda.empty_cache()
 
@@ -1614,7 +1624,8 @@ def family_phase(dev, kind: str, src: SageFile, oracle: "Oracle") -> dict:
         b = {kk: torch.as_tensor(v).to(dev) for kk, v in next(trainer.data).items()}
         return trainer.step_fn(trainer.model, trainer.opt, b)[2]["loss"]
 
-    train_prof = profile_window(one_step_of_run, focus=focus, ranges=attn + [(LAYERS, "_flash_bwd")])
+    train_prof = profile_window(one_step_of_run, focus=focus, ranges=attn + [(LAYERS, "_flash_bwd")],
+                               kernels=("ssd_bwd",))
     need = run["batch"] * (run["seq"] + 1)
     base = spec["first_tile"] * n_src
     kpb = [oracle.rows[source_block(base + j, n_src)].size // k for j in range(run["tiles"] * n_src)]
@@ -1882,7 +1893,7 @@ def main() -> None:
                                  zcfg.ssm_heads, zcfg.ssm_headdim, zcfg.ssm_state)  # the hybrid phase's 8 x 512
     b6_shapes["zamba2_decode"] = (FAMILY_RUN["prompts"], 1, 1, zcfg.ssm_heads, zcfg.ssm_headdim,
                                   zcfg.ssm_state)  # the hybrid phase's decode step of 8 prompts
-    for q in (2, 17, 127):  # chunk tails of the prefill route
+    for q in (1, 2, 17, 64, 120, 127):  # chunk tails of the prefill route; the backward's causal tile edges
         b6_shapes[f"q{q}"] = (2, 3, q, lm_cfg.ssm_heads, lm_cfg.ssm_headdim, lm_cfg.ssm_state)
     b6_checks, b6_rows = {}, {}
     for i, (shp, xdt, decay) in enumerate([
@@ -1918,13 +1929,16 @@ def main() -> None:
     # B6's backward at the train shape (mamba2-370m, 8 x 512 tokens: the
     # prefill shape) with bf16 x, as the train step launches it, timed; as
     # checks f32 x, large decay in f32 and bf16, a 17-step chunk and
-    # zamba2-2.7b's N = 64
+    # zamba2-2.7b's N = 64, and the causal tile edges inside a 16 x 8 tile
+    # (chunks of 1, 64 and 120 steps)
     bwd_checks, bwd_row = {}, None
     for i, (shp, xdt, decay) in enumerate([
         ("prefill", torch.bfloat16, "serve"), ("prefill", torch.float32, "serve"),
         ("prefill", torch.float32, "large"), ("prefill", torch.bfloat16, "large"),
         ("q17", torch.float32, "unit"), ("zamba2", torch.bfloat16, "serve"),
         ("zamba2_train", torch.bfloat16, "serve"), ("zamba2_train", torch.float32, "large"),
+        ("q1", torch.bfloat16, "serve"), ("q64", torch.bfloat16, "unit"), ("q120", torch.float32, "large"),
+        ("q120", torch.bfloat16, "large"),
     ]):
         args = ssd_inputs(b6_shapes[shp], xdt, decay, seed=200 + i, dev=dev) + \
             ssd_grads(b6_shapes[shp], xdt, seed=300 + i, dev=dev)
@@ -1953,8 +1967,8 @@ def main() -> None:
         route="cuda", source="src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
         replaces="no TPU twin: jax.grad of src/repro/models/ssm.py:57 ssd_chunked",
         match=all(c["match"] for c in bwd_checks.values()), **bwd_row, library_ms=None, zamba2=bwd_zamba2,
-        plan={"ctas": int(np.prod(b6_shapes["prefill"][:2])) * b6_shapes["prefill"][3], "threads": 256,
-              **ptxas_usage("ssd_chunk_bwd", "ssd_bwd_kernel")})
+        plan={**bwd_plan(b6_shapes["prefill"], torch.bfloat16),
+              **ptxas_usage("ssd_chunk_bwd", "ssd_bwd_kernelI13__nv_bfloat16")})
 
     # banded-alignment DP: one full lane chunk of the batched mapper on the
     # Illumina set (1024 lanes, L 150, band 24: width 49), and every card

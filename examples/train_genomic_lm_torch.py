@@ -29,6 +29,7 @@ from repro_torch.core import SageStore
 from repro_torch.core.decode_torch import reset_trace_counts, resolve_device, trace_counts
 from repro_torch.data import SageTokenPipeline
 from repro_torch.genomics.synth import make_reference, sample_read_set
+from repro_torch.launch.train import PrefetchedBatches
 from repro_torch.training.optimizer import AdamWConfig
 from repro_torch.training.steps import TrainOptions, init_train_state
 from repro_torch.training.trainer import Trainer, TrainerConfig
@@ -73,12 +74,13 @@ def main() -> None:
 
     tc = TrainerConfig(total_steps=args.steps, ckpt_every=max(args.steps // 3, 50),
                        log_every=20, ckpt_dir=args.ckpt_dir)
-    trainer = Trainer(tc, cfg, opts, model, opt, iter(pipe.prefetched()))
+    feed = PrefetchedBatches(pipe)  # its checkpoints keep the cursor of the batches trained on
+    trainer = Trainer(tc, cfg, opts, model, opt, feed)
     trainer.install_signal_handler()
-    if trainer.maybe_resume(pipe):
+    if trainer.maybe_resume(feed):
         print(f"resumed from step {trainer.step}")
     reset_trace_counts()
-    hist = trainer.run(pipeline=pipe)
+    hist = trainer.run(pipeline=feed)
     counts = trace_counts()
     l0, l1 = hist[0]["loss"], hist[-1]["loss"]
     print(f"loss {l0:.3f} -> {l1:.3f} over {trainer.step} steps")

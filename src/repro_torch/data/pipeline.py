@@ -37,6 +37,48 @@ from repro_torch.core.format import D, SageFile
 from repro_torch.core.store import SageReadSession, SageStore
 
 
+def prefetch_thread(items: Iterator, depth: int, owner=None) -> Iterator:
+    """``items``, made up to ``depth`` ahead by a worker thread.
+
+    The worker uses a timeout put that checks a stop flag, so abandoning
+    the iterator mid-stream — even with a full queue — terminates the
+    thread instead of leaking it blocked on ``q.put``. An exception in the
+    worker is raised in the consumer. ``owner``, when given, gets the
+    thread as ``_prefetch_thread`` (so tests can assert termination)."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+
+    def put_or_stop(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in items:
+                if not put_or_stop(item):
+                    return
+        except Exception as e:  # delivered to the consumer thread
+            put_or_stop(e)
+
+    t = threading.Thread(target=worker, daemon=True)
+    if owner is not None:
+        owner._prefetch_thread = t
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if isinstance(item, Exception):
+                raise item
+            yield item
+    finally:
+        stop.set()
+
+
 @dataclasses.dataclass
 class Cursor:
     epoch: int = 0
@@ -246,42 +288,9 @@ class SageTokenPipeline:
             yield from self._batches_from_buffer()
 
     def prefetched(self) -> Iterator[dict[str, np.ndarray]]:
-        """Double-buffered: decode of fetch#i overlaps training on #i-1.
-
-        The worker uses a timeout put that checks a stop flag, so
-        abandoning the iterator mid-stream — even with a full queue —
-        terminates the thread instead of leaking it blocked on ``q.put``."""
-        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
-        stop = threading.Event()
-
-        def put_or_stop(item) -> bool:
-            while not stop.is_set():
-                try:
-                    q.put(item, timeout=0.1)
-                    return True
-                except queue.Full:
-                    continue
-            return False
-
-        def worker():
-            try:
-                for b in self.batches():
-                    if not put_or_stop(b):
-                        return
-            except Exception as e:  # delivered to the consumer thread
-                put_or_stop(e)
-
-        t = threading.Thread(target=worker, daemon=True)
-        self._prefetch_thread = t  # exposed so tests can assert termination
-        t.start()
-        try:
-            while True:
-                item = q.get()
-                if isinstance(item, Exception):
-                    raise item
-                yield item
-        finally:
-            stop.set()
+        """Double-buffered: decode of fetch#i overlaps training on #i-1
+        (:func:`prefetch_thread` over :meth:`batches`, ``prefetch`` deep)."""
+        yield from prefetch_thread(self.batches(), self.prefetch, self)
 
     # ------------------------------------------------------- fault tolerance
     def state(self) -> dict:

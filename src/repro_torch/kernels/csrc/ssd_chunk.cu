@@ -74,6 +74,8 @@
 #include <atomic>
 #include <type_traits>
 
+#include "ssd_mma.cuh"  // mma, cp_async16, cp_async4, cp_commit, cp_wait_all
+
 namespace {
 
 constexpr int NT = 256;       // prefill threads a CTA: 8 warps
@@ -149,14 +151,6 @@ __device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
   lo = __float_as_uint(__fsub_rn(v, __uint_as_float(hi)));
 }
 
-__device__ __forceinline__ void mma(float* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // d += a · b in 3xTF32: the small cross terms first, then hi·hi, into a
 // fresh accumulator that is then added to d in f32 (round to nearest). The
 // tensor cores' own f32 accumulation truncates: chained over a whole K of
@@ -192,17 +186,6 @@ __device__ __forceinline__ void split2(float v0, float v1, uint32_t* hi, uint32_
   split(v0, hi[0], lo[0]);
   split(v1, hi[1], lo[1]);
 }
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
 // Swizzled positions: C's slices as 16-float rows, B's block as 128-float
 // rows, each XOR-ing 4-float chunk indices by row so that the fragment

@@ -18,10 +18,12 @@ bandwidth-bound kernel that writes the state ``(x·dt) ⊗ B``.
 
 The gradient (no TPU twin: the JAX package differentiates its plain
 ``ssd_chunked``) is :class:`SsdIntra`, whose backward launches
-``csrc/ssd_chunk_bwd.cu`` for CUDA tensors and takes
-:func:`ssd_intra_bwd_plain` for CPU tensors. Per (b, c, head), with
-``u_j = x_j·dt_j``, ``M = (C·Bᵀ)∘L``, ``g_q = exp(total - cum_q)`` and
-``w_q = dt_q·g_q``, from the gradients ``dy``, ``dst`` and ``dtotal``:
+``csrc/ssd_chunk_bwd.cu`` for CUDA tensors (its seven products on tensor
+cores in split-precision TF32 over the causal tiles, f32 accuracy whatever
+``allow_tf32`` says) and takes :func:`ssd_intra_bwd_plain` for CPU
+tensors. Per (b, c, head), with ``u_j = x_j·dt_j``, ``M = (C·Bᵀ)∘L``,
+``g_q = exp(total - cum_q)`` and ``w_q = dt_q·g_q``, from the gradients
+``dy``, ``dst`` and ``dtotal``:
 
     dM = (dy·uᵀ)∘[i >= j]      du = Mᵀ·dy        sB_q = dst·B_q    dw_q = x_q·sB_q
     dx = du·dt + w·sB          ddt = Σ_P du∘x + g·dw
@@ -42,6 +44,7 @@ from repro_torch.kernels import cuda_lib
 
 F32 = torch.float32
 MAX_CHUNK = 128  # longest chunk one CTA of the kernel holds (QM in ssd_chunk.cu)
+MAX_BWD_HEAD_DIM = 128  # widest head dim one gradient launch holds (PMAX in ssd_chunk_bwd.cu)
 
 
 def ssd_intra_plain(x, dt, a, B_, C_):
@@ -89,8 +92,20 @@ def _bwd_lib():
     lib.ssd_bwd_launch.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 12
                                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.ssd_bwd_launch.restype = ctypes.c_int
+    lib.ssd_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.ssd_bwd_smem_bytes.restype = ctypes.c_int
     lib.ssd_bwd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def bwd_plan(shape, x_dtype) -> dict:
+    """The gradient kernel's launch at (B, nc, Q, H, P, N) with x of
+    ``x_dtype``: head-dim chunks (one kernel launch each, one at P <= 128),
+    CTAs (one a (b, chunk, head)), threads a CTA and shared memory a CTA,
+    from the built library."""
+    Bb, nc, _Q, H, P, _N = shape
+    return {"head_chunks": -(-P // MAX_BWD_HEAD_DIM), "ctas": Bb * nc * H, "threads": 256,
+            "smem_bytes": _bwd_lib().ssd_bwd_smem_bytes(min(P, MAX_BWD_HEAD_DIM), int(x_dtype == torch.bfloat16))}
 
 
 def _check_shapes(x, dt, a, B_, C_) -> None:
@@ -197,11 +212,57 @@ def ssd_intra_bwd_plain(x, dt, a, B_, C_, dy, dst, dtotal):
     return dx.to(x.dtype), ddt, da.to(F32), dB, dC
 
 
+def bwd_by_head_chunks(fn, width, x, dt, a, B_, C_, dy, dst, dtotal):
+    """``fn``, a gradient with the signature of :func:`ssd_intra_bwd_plain`,
+    over head-dim chunks of at most ``width`` columns of x, dy and dst.
+
+    dx is the chunks' dx side by side. Every other result is linear in
+    sums over the head dim (dy·uᵀ, dstᵀ·x, Σ_P du∘x, dw), so it is the sum
+    of the chunks' results, taken in chunk order, with ``dtotal`` entering
+    the first chunk alone. At P <= ``width`` this is one call of ``fn``."""
+    P = x.shape[-1]
+    if P <= width:
+        return fn(x, dt, a, B_, C_, dy, dst, dtotal)
+    dxs, sums = [], None
+    for p0 in range(0, P, width):
+        cols = slice(p0, p0 + width)
+        part = fn(x[..., cols].contiguous(), dt, a, B_, C_, dy[..., cols].contiguous(),
+                  dst[..., cols, :].contiguous(), dtotal if p0 == 0 else torch.zeros_like(dtotal))
+        dxs.append(part[0])
+        sums = list(part[1:]) if sums is None else [u + v for u, v in zip(sums, part[1:])]
+    return (torch.cat(dxs, dim=-1), *sums)
+
+
+def _bwd_launch(x, dt, a, B_, C_, dy, dst, dtotal):
+    """One launch of the gradient kernel: P <= MAX_BWD_HEAD_DIM."""
+    Bb, nc, Q, H, P = x.shape
+    N = B_.shape[-1]
+    dev = x.device
+    dx = torch.empty_like(x)
+    ddt = torch.empty((Bb, nc, Q, H), dtype=F32, device=dev)
+    da = torch.empty_like(ddt)
+    dB = torch.empty((Bb, nc, Q, H, N), dtype=F32, device=dev)
+    dC = torch.empty_like(dB)
+    lib = _bwd_lib()
+    with torch.cuda.device(dev):
+        rc = lib.ssd_bwd_launch(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), dt.data_ptr(), a.data_ptr(), B_.data_ptr(),
+            C_.data_ptr(), dy.data_ptr(), dst.data_ptr(), dtotal.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), da.data_ptr(), dB.data_ptr(), dC.data_ptr(), Bb, nc, Q, H, P, N,
+            torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check(rc, "ssd_intra_bwd", lib.ssd_bwd_error_string)
+    return dx, ddt, da, dB, dC
+
+
 def ssd_intra_bwd(x, dt, a, B_, C_, dy, dst, dtotal):
     """B6's gradient; inputs and results as :func:`ssd_intra_bwd_plain`.
 
-    CUDA: one launch of ``csrc/ssd_chunk_bwd.cu``; x and dy in the same type
-    (f32 or bf16), every other input f32, all contiguous, Q <= 128."""
+    CUDA: ``csrc/ssd_chunk_bwd.cu``; x and dy in the same type (f32 or
+    bf16), every other input f32, all contiguous, Q <= 128, any P. The
+    kernel keeps x and dy in shared memory, so one launch takes at most 128
+    head-dim columns: P <= 128 is one launch, a wider head one launch a
+    128-column chunk (:func:`bwd_by_head_chunks`). Either counts one
+    ``launch:ssd_intra_bwd``."""
     _check_shapes(x, dt, a, B_, C_)
     if cuda_lib.on_cpu(x, dt, a, B_, C_, dy, dst, dtotal):
         cuda_lib.COUNTS["plain:ssd_intra_bwd"] += 1
@@ -219,22 +280,9 @@ def ssd_intra_bwd(x, dt, a, B_, C_, dy, dst, dtotal):
     cuda_lib.require_cuda(x, dt, a, B_, C_, dy, dst, dtotal, name="ssd_intra_bwd")
     if Q > MAX_CHUNK:
         raise ValueError(f"ssd_intra_bwd: chunk length {Q} exceeds the kernel's {MAX_CHUNK}")
-    dev = x.device
-    dx = torch.empty_like(x)
-    ddt = torch.empty((Bb, nc, Q, H), dtype=F32, device=dev)
-    da = torch.empty_like(ddt)
-    dB = torch.empty((Bb, nc, Q, H, N), dtype=F32, device=dev)
-    dC = torch.empty_like(dB)
-    lib = _bwd_lib()
-    with torch.cuda.device(dev):
-        rc = lib.ssd_bwd_launch(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), dt.data_ptr(), a.data_ptr(), B_.data_ptr(),
-            C_.data_ptr(), dy.data_ptr(), dst.data_ptr(), dtotal.data_ptr(), dx.data_ptr(),
-            ddt.data_ptr(), da.data_ptr(), dB.data_ptr(), dC.data_ptr(), Bb, nc, Q, H, P, N,
-            torch.cuda.current_stream().cuda_stream)
-    cuda_lib.check(rc, "ssd_intra_bwd", lib.ssd_bwd_error_string)
+    out = bwd_by_head_chunks(_bwd_launch, MAX_BWD_HEAD_DIM, x, dt, a, B_, C_, dy, dst, dtotal)
     cuda_lib.COUNTS["launch:ssd_intra_bwd"] += 1
-    return dx, ddt, da, dB, dC
+    return out
 
 
 class SsdIntra(torch.autograd.Function):

@@ -14,7 +14,9 @@ naming the ROADMAP slice that brings them.
 ``torch.Generator`` seeded with 0. The reads are encoded by the batched
 ``SageEncoder`` on ``--device`` into a ``SageTokenPipeline`` over a fused
 session (k-mer tokens). ``--resume`` continues from the newest checkpoint
-in ``--ckpt-dir``, which either package's trainer may have written.
+in ``--ckpt-dir``, which either package's trainer may have written. The
+trainer draws its batches through :class:`PrefetchedBatches`, so a
+checkpoint resumes at the first batch it did not train on.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from repro_torch.core import SageStore
 from repro_torch.core.decode_torch import resolve_device
 from repro_torch.core.encoder import SageEncoder
 from repro_torch.data import SageTokenPipeline
+from repro_torch.data.pipeline import prefetch_thread
 from repro_torch.genomics.synth import make_reference, sample_read_set
 from repro_torch.training.optimizer import AdamWConfig
 from repro_torch.training.steps import TrainOptions, init_train_state
@@ -43,6 +46,50 @@ def build_pipeline(vocab: int, batch: int, seq: int, ref_len: int = 80_000, dept
     rs = sample_read_set(ref, "illumina", depth=depth, seed=seed + 1)
     sf = SageEncoder(ref, token_target=16384, device=dev).encode(rs)
     return SageTokenPipeline(sf, vocab, batch, seq, store=SageStore(device=dev))
+
+
+class PrefetchedBatches:
+    """A pipeline's batches, prefetched, with the cursor the trainer has reached.
+
+    Iterating prefetches like ``pipe.prefetched()``, through the same
+    :func:`~repro_torch.data.pipeline.prefetch_thread`, ``pipe.prefetch``
+    batches deep from ``pipe.batches()``. The worker keeps with each batch
+    the pipeline's state right after making it, and :meth:`state` returns
+    the state of the last batch handed out, so a checkpoint that saves it
+    resumes at the next batch the trainer has not seen. ``pipe.state()``
+    alone is the cursor of the batches made so far, up to ``prefetch`` + 1
+    ahead of the trainer. :meth:`restore` forwards to the pipeline and must
+    come before the first batch is drawn.
+
+    Pass it to ``Trainer`` as the data iterator and as ``pipeline=``."""
+
+    def __init__(self, pipe) -> None:
+        self.pipe = pipe
+        self._stream = None
+        self._state = None
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> dict:
+        if self._stream is None:
+            self._stream = self._prefetch()
+        batch, self._state = next(self._stream)
+        return batch
+
+    def _prefetch(self):
+        def with_state():
+            for b in self.pipe.batches():
+                yield b, self.pipe.state()
+        return prefetch_thread(with_state(), self.pipe.prefetch)
+
+    def state(self) -> dict:
+        return self.pipe.state() if self._state is None else self._state
+
+    def restore(self, state: dict) -> None:
+        if self._stream is not None:
+            raise RuntimeError("PrefetchedBatches.restore: batches were already drawn")
+        self.pipe.restore(state)
 
 
 def main(argv=None) -> None:
@@ -77,11 +124,12 @@ def main(argv=None) -> None:
 
     pipe = build_pipeline(cfg.vocab, args.batch, args.seq, device=dev)
     tc = TrainerConfig(total_steps=args.steps, ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir)
-    trainer = Trainer(tc, cfg, opts, model, opt, iter(pipe.prefetched()))
+    feed = PrefetchedBatches(pipe)
+    trainer = Trainer(tc, cfg, opts, model, opt, feed)
     trainer.install_signal_handler()
-    if args.resume and trainer.maybe_resume(pipe):
+    if args.resume and trainer.maybe_resume(feed):
         print(f"resumed at step {trainer.step}")
-    hist = trainer.run(pipeline=pipe)
+    hist = trainer.run(pipeline=feed)
     if hist:
         print(f"final loss {hist[-1]['loss']:.4f} after {trainer.step} steps "
               f"(straggler anomalies: {trainer.monitor.anomalies})")

@@ -13,6 +13,11 @@ banded-alignment DP's cases alone:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_kernels.py -k align
 
+B6 and its backward kernel (every SSD case, the determinism, allow_tf32 and
+refusal tests, and ops.ssd's gradients against the CPU):
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_kernels.py -k ssd
+
 B6's backward kernel and the training step on the card:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_kernels.py -k "bwd or train"
@@ -573,21 +578,36 @@ def ssd_bwd_grads(shape, dtype, dev, seed=0):
     return dy, dst, dtot
 
 
-SSD_BWD_SHAPES = dict(SSD_SHAPES, train=SSD_SHAPES["prefill"])
+# the backward's causal tile edges inside a 16 x 8 tile: a chunk of one step,
+# of 64 (half the strips) and of 120 (the last strip cut mid-tile); its
+# widest launch (P 128: two head-dim chunks of du and dx, the most shared
+# memory in f32), P 96 in bf16 (the second chunk re-streams B and dst), and
+# heads wider than one launch holds (P 129 and 200: head-dim chunks summed)
+SSD_BWD_SHAPES = dict(SSD_SHAPES, train=SSD_SHAPES["prefill"], q1=(2, 3, 1, 4, 64, 128),
+                      q64=(2, 2, 64, 4, 64, 128), q120=(2, 2, 120, 4, 64, 128),
+                      p128=(2, 2, 128, 2, 128, 64), p96=(2, 2, 70, 3, 96, 128),
+                      p129=(1, 2, 16, 2, 129, 8), p200=(2, 2, 128, 2, 200, 64))
 SSD_BWD_CASES = [("train", torch.bfloat16, "mild"), ("train", torch.float32, "mild"),
                  ("train", torch.float32, "large"), ("train", torch.bfloat16, "large"),
                  ("q2", torch.float32, "mild"), ("q17", torch.float32, "mild"),
                  ("q127", torch.float32, "large"), ("zamba2", torch.float32, "mild"),
                  ("zamba2", torch.bfloat16, "mild"), ("ragged", torch.float32, "mild"),
-                 ("odd", torch.bfloat16, "mild"), ("odd1", torch.float32, "mild")]
+                 ("odd", torch.bfloat16, "mild"), ("odd1", torch.float32, "mild"),
+                 ("q1", torch.bfloat16, "mild"), ("q64", torch.bfloat16, "mild"),
+                 ("q64", torch.float32, "mild"), ("q120", torch.float32, "large"),
+                 ("q120", torch.bfloat16, "large"), ("p128", torch.float32, "mild"),
+                 ("p128", torch.bfloat16, "mild"), ("p96", torch.bfloat16, "mild"),
+                 ("p129", torch.bfloat16, "mild"), ("p200", torch.float32, "large"),
+                 ("p200", torch.bfloat16, "mild")]
 
 
 @pytest.mark.parametrize("name,dtype,decay", SSD_BWD_CASES,
                          ids=[f"{n}-{str(d)[6:]}-{c}" for n, d, c in SSD_BWD_CASES])
 def test_ssd_intra_bwd_kernel_matches_plain(cuda, name, dtype, decay):
     """B6's backward kernel against ssd_intra_bwd_plain on the card: chunks
-    of 2, 17, 127 and 128 steps, N = 64, 128 and 200, bf16 and f32 x, and
-    large decay (exp of the upper triangle overflows). The f32 gradients
+    of 1, 2, 17, 64, 120, 127 and 128 steps, P from 33 to 200 (past 128 in
+    head-dim chunks, still one counted launch), N = 8 to 200, bf16 and f32
+    x, and large decay (exp of the upper triangle overflows). The f32 gradients
     within rtol 1e-5 and 1e-5·max|grad| (sums of up to Q·N products in
     another order); dx in bf16 within one bf16 ulp (rtol 8e-3); all finite."""
     from repro_torch.kernels.ssd_chunk import ssd_intra_bwd, ssd_intra_bwd_plain
@@ -613,6 +633,25 @@ def test_ssd_intra_bwd_kernel_is_deterministic(cuda):
     shape = SSD_BWD_SHAPES["train"]
     args = ssd_inputs(shape, torch.bfloat16, "mild", cuda, seed=3) + ssd_bwd_grads(shape, torch.bfloat16, cuda)
     for a, b in zip(ssd_intra_bwd(*args), ssd_intra_bwd(*args)):
+        assert torch.equal(a, b)
+
+
+def test_ssd_intra_bwd_kernel_ignores_allow_tf32(cuda):
+    """The gradient kernel's precision is its own: the same bits with
+    PyTorch's TF32 switch for matmul on and off."""
+    from repro_torch.kernels.ssd_chunk import ssd_intra_bwd
+
+    shape = SSD_BWD_SHAPES["train"]
+    args = ssd_inputs(shape, torch.float32, "mild", cuda, seed=4) + ssd_bwd_grads(shape, torch.float32, cuda)
+    was = torch.backends.cuda.matmul.allow_tf32
+    try:
+        outs = []
+        for flag in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            outs.append(ssd_intra_bwd(*args))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+    for a, b in zip(*outs):
         assert torch.equal(a, b)
 
 

@@ -16,7 +16,7 @@ from repro.kernels.ssd_chunk import ssd_intra_pallas
 from repro.models.ssm import ssd_chunked as jax_ssd_chunked
 
 from repro_torch.kernels import cuda_lib, ops, ref
-from repro_torch.kernels.ssd_chunk import ssd_intra, ssd_intra_plain
+from repro_torch.kernels.ssd_chunk import bwd_by_head_chunks, ssd_intra, ssd_intra_bwd_plain, ssd_intra_plain
 from repro_torch.models.ssm import ssd_chunked
 
 # (B, S, H, P, N, chunk): the three shapes of test_ssd_kernel_sweep
@@ -205,10 +205,11 @@ def split(v: torch.Tensor):
 
 def product(eq: str, a, b, passes: int) -> torch.Tensor:
     """An einsum of f32 operands as the tensor cores take them: exact
-    products of TF32 values (summed in f64 here), one pass (hi·hi) or the
-    3xTF32 sum lo·hi + hi·lo + hi·hi."""
+    products of TF32 values (summed in f64 here), one pass (hi·hi), two
+    (lo·hi + hi·hi: b taken as its TF32 value, exact when b is a bf16 value)
+    or the 3xTF32 sum lo·hi + hi·lo + hi·hi."""
     (ah, al), (bh, bl) = split(a), split(b)
-    terms = [(ah, bh)] if passes == 1 else [(al, bh), (ah, bl), (ah, bh)]
+    terms = {1: [(ah, bh)], 2: [(al, bh), (ah, bh)], 3: [(al, bh), (ah, bl), (ah, bh)]}[passes]
     return sum(torch.einsum(eq, x.double(), y.double()) for x, y in terms)
 
 
@@ -243,6 +244,108 @@ def test_split_tf32_holds_the_tolerance():
     assert miss(y1, exact_y, 1e-5) > 1e-5  # one TF32 pass misses 1e-5 on y
     assert miss(y3, exact_y, 1e-5) <= 1e-5
     assert miss(st3, exact_st, 1e-4) <= 1e-4
+
+
+# B6 backward's pass plan (csrc/ssd_chunk_bwd.cu) with bf16 x and dy: TF32
+# passes a product, operands as the kernel gives them to the tensor cores
+BWD_PASS_PLAN = {"S": 3, "dyx": 1, "du": 2, "sB": 3, "dC": 3, "dSC": 3, "dstx": 2}
+
+
+def bwd_tf32(x, dt, a, Bm, Cm, dy, dst, plan=None):
+    """dx, ddt, dB, dC of B6 backward as the kernel forms them, the seven
+    products on emulated TF32 operands with ``plan``'s passes (summed in
+    f64), the matrices the kernel keeps in f32 rounded to f32; with
+    ``plan=None`` every operation is exact f64. x and dy are bf16 values."""
+    exact = plan is None
+    F = torch.float64 if exact else torch.float32
+
+    def prod(name, eq, u, v):
+        if exact:
+            return torch.einsum(eq, u.double(), v.double())
+        return product(eq, u, v, plan[name]).float()
+
+    x, dy, dt = x.to(F), dy.to(F), dt.to(F)
+    cum = torch.cumsum(a.double(), dim=2)
+    Q = x.shape[2]
+    tri = torch.ones((Q, Q), dtype=torch.bool).tril()[None, None, :, :, None]
+    L = torch.where(tri, torch.exp((cum[:, :, :, None, :] - cum[:, :, None, :, :]).to(F)), 0.0)
+    g = torch.exp((cum[:, :, -1:, :] - cum).to(F))
+    w = dt * g
+    S = prod("S", "bcihn,bcjhn->bcijh", Cm, Bm)
+    dM = prod("dyx", "bcihp,bcjhp->bcijh", dy, x) * dt[:, :, None]  # dt moved onto columns j
+    dS, M = torch.where(tri, dM * L, 0.0), torch.where(tri, S * L, 0.0)
+    du = prod("du", "bcijh,bcihp->bcjhp", M, dy)
+    sB = prod("sB", "bcqhn,bchpn->bcqhp", Bm, dst)
+    dC = prod("dC", "bcijh,bcjhn->bcihn", dS, Bm)
+    dB = prod("dSC", "bcijh,bcihn->bcjhn", dS, Cm) + w[..., None] * prod("dstx", "bchpn,bcqhp->bcqhn", dst, x)
+    dw = (x * sB).sum(-1)
+    return du * dt[..., None] + w[..., None] * sB, (du * x).sum(-1) + g * dw, dB, dC
+
+
+def test_bwd_tf32_pass_plan_holds_the_tolerance():
+    """Why B6 backward runs each product with the passes it does: at
+    mamba2-370m's train shape (two heads, bf16 x and dy), emulating the
+    kernel's TF32 operands, its plan holds dx, ddt, dB and dC to rtol 1e-5
+    and atol 1e-5·max|grad| (the card tests' bound) against an f64
+    evaluation, and each product with one pass fewer misses it. The plan:
+      S = C·Bᵀ        f32·f32     3 (3xTF32)
+      dy·xᵀ           bf16·bf16   1 (exact; dt moved onto the columns j)
+      du = Mᵀ·dy      f32·bf16    2 (M split, dy exact)
+      sB = B·dstᵀ     f32·f32     3
+      dC = dS·B       f32·f32     3
+      dSᵀ·C           f32·f32     3
+      x·dst           bf16·f32    2 (dst split, x exact)
+    With f32 x every product that takes x or dy runs three passes."""
+    Bb, nc, Q, H, P, N = 8, 4, 128, 2, 64, 128
+    x, dt, a, Bm, Cm = (torch.from_numpy(v) for v in chunked(make((Bb, nc * Q, H, P, N, Q), seed=33), Q))
+    rng = np.random.default_rng(34)
+    x = x.to(torch.bfloat16).float()
+    dy = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32)).to(torch.bfloat16).float()
+    dst = torch.from_numpy(rng.standard_normal((Bb, nc, H, P, N)).astype(np.float32))
+    args = (x, dt, a, Bm, Cm, dy, dst)
+    exact = bwd_tf32(*args)
+
+    def miss(plan):
+        """The largest excess over the bound, over dx, ddt, dB and dC."""
+        return max(float(((got.double() - want).abs() - 1e-5 * want.abs()).max() - 1e-5 * float(want.abs().max()))
+                   for got, want in zip(bwd_tf32(*args, plan), exact))
+
+    assert miss(BWD_PASS_PLAN) <= 0.0
+    for name, passes in BWD_PASS_PLAN.items():
+        if passes > 1:
+            assert miss({**BWD_PASS_PLAN, name: passes - 1}) > 0.0, name
+
+
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_bwd_by_head_chunks_matches_one_pass(xdt):
+    """A head wider than one launch of B6 backward holds (P > 128) runs as
+    head-dim chunks whose results are summed, dtotal in the first alone.
+    With the plain gradient as the chunk's function, P 40 in chunks of 16,
+    16 and 8 gives one pass's dx, ddt, da, dB and dC within the card tests'
+    bound (rtol 1e-5, atol 1e-5·max|grad|: f32 sums in another order; dx in
+    bf16 within one bf16 ulp)."""
+    Bb, nc, Q, H, P, N = 2, 2, 16, 3, 40, 24
+    x, dt, a, Bm, Cm = (torch.from_numpy(v) for v in chunked(make((Bb, nc * Q, H, P, N, Q), seed=35), Q))
+    rng = np.random.default_rng(36)
+    x = x.to(xdt)
+    dy = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32)).to(xdt)
+    dst = torch.from_numpy(rng.standard_normal((Bb, nc, H, P, N)).astype(np.float32))
+    dtot = torch.from_numpy(rng.standard_normal((Bb, nc, H)).astype(np.float32))
+    args = (x, dt, a, Bm, Cm, dy, dst, dtot)
+    widths = []
+
+    def plain(*chunk):
+        widths.append(chunk[0].shape[-1])
+        return ssd_intra_bwd_plain(*chunk)
+
+    got = bwd_by_head_chunks(plain, 16, *args)
+    assert widths == [16, 16, 8]
+    for name, u, v in zip(("dx", "ddt", "da", "dB", "dC"), got, ssd_intra_bwd_plain(*args)):
+        assert u.shape == v.shape and u.dtype == v.dtype, name
+        rtol = 8e-3 if u.dtype == torch.bfloat16 else 1e-5
+        torch.testing.assert_close(u.float(), v.float(), rtol=rtol, atol=1e-5 * float(v.float().abs().max()),
+                                   msg=lambda m, name=name: f"{name}: {m}")
+    assert bwd_by_head_chunks(plain, P, *args)[0].shape == x.shape and widths[-1] == P
 
 
 def test_bf16_x_needs_two_tf32_products():

@@ -12,6 +12,7 @@ test states its tolerance and why."""
 import functools
 import json
 import signal
+import time
 
 import jax
 import jax.numpy as jnp
@@ -601,6 +602,51 @@ def test_trainer_resume_matches_uninterrupted(illumina_encoded, start, tmp_path)
     np.testing.assert_allclose([h["loss"] for h in first.history + second.history],
                                [h["loss"] for h in whole], rtol=1e-6)
     assert full.ckpt.steps() == [2, 4]
+
+
+def _ran_ahead(pipe, batches: int) -> None:
+    """Wait until a prefetching worker has made ``batches`` batches."""
+    need = pipe.batch * (pipe.seq_len + 1)
+    for _ in range(1000):
+        if pipe.cursor.consumed >= batches * need:
+            return
+        time.sleep(0.01)
+    raise AssertionError("the prefetch worker made no batch ahead of the trainer")
+
+
+def test_prefetched_batches_save_the_cursor_of_the_last_batch_handed_out(illumina_encoded):
+    """ROADMAP C-1: the launchers draw batches through
+    launch.train.PrefetchedBatches, whose state() is the cursor of the last
+    batch handed to the trainer, although its worker runs ahead. Restored
+    into a fresh pipeline, it gives batch k + 1 of an uninterrupted
+    batches() stream after k batches; pipe.state() beside pipe.prefetched()
+    (the launchers' pairing before) skips the batches made ahead."""
+    cfg = get_arch(ARCH).reduced()
+    k = 3
+    whole = _pipe(illumina_encoded, cfg).batches()
+    want = [next(whole) for _ in range(k + 1)]
+
+    feed = launch_train.PrefetchedBatches(_pipe(illumina_encoded, cfg))
+    for i in range(k):
+        np.testing.assert_array_equal(next(feed)["tokens"], want[i]["tokens"])
+    _ran_ahead(feed.pipe, k + 1)
+    resumed = _pipe(illumina_encoded, cfg)
+    resumed.restore(feed.state())
+    nxt = next(resumed.batches())
+    np.testing.assert_array_equal(nxt["tokens"], want[k]["tokens"])
+    np.testing.assert_array_equal(nxt["labels"], want[k]["labels"])
+    with pytest.raises(RuntimeError, match="already drawn"):
+        feed.restore(feed.state())
+
+    pipe = _pipe(illumina_encoded, cfg)
+    stream = pipe.prefetched()
+    for _ in range(k):
+        next(stream)
+    _ran_ahead(pipe, k + 1)
+    stale = _pipe(illumina_encoded, cfg)
+    stale.restore(pipe.state())
+    assert not np.array_equal(next(stale.batches())["tokens"], want[k]["tokens"])
+    stream.close()
 
 
 def test_straggler_monitor_flags_slow_steps():
