@@ -42,9 +42,11 @@ Phases, each printing one JSON line:
            memory, ptxas registers and spills) and in f32, at large decay,
            Q = 1, 17, 64 and 120 and
            N = 64, against ssd_intra_bwd_plain; the banded-alignment DP on one 1024-lane chunk of the
-           batched mapper's Illumina lanes (L 150, band 24) and every case of
-           tests/dp_cases.py (widths up to 641), bit for bit, with its plan
-           (grid, threads, shared memory, ptxas registers and spills)
+           batched mapper's Illumina lanes (L 150, band 24) and every card case of
+           tests/dp_cases.py (widths up to 1023, both store routes), bit for
+           bit, each case timed, with its plan (layout, route, grid, threads,
+           shared memory, ptxas registers and spills); int32 bounds use the
+           card's int32 rate (64 a clock an SM x SMs x clocks.max.sm)
   main     SageStore(device="cuda"): session.read of 256-block ranges in
            2bit / kmer / onehot, a 4096-block dispatch-mode kmer stream, and
            every ONT and HiFi block in all three formats; then a fused
@@ -146,6 +148,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import io
 import json
 import re
@@ -209,7 +212,10 @@ except ImportError as e:  # run outside a checkout of the repository
     sys.exit(2)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-INT_OPS_PER_S = 67e12  # H100 SXM non-tensor-core rate (float32 table entry)
+# 32-bit integer adds, compares, min/max or logic ops a clock an SM (CUDA C
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0); B1-B5 and the DP are bound by int32_ops_per_s()
+INT_OPS_PER_CLOCK_PER_SM = 64
 B6_OPS_PER_S = 495e12 / 3  # B6's f32-accurate route: 3 TF32 products (3xTF32) at the dense TF32 rate
 SPIN_HZ = 2.0e9  # >= the H100's SM clock, so a spin of n cycles lasts at least n / SPIN_HZ s
 # Illumina at full width: 8 source blocks of C = 65558 tokens
@@ -239,7 +245,12 @@ B6_TOL = {"y_f32": (1e-5, 1e-5), "y_bf16": (8e-3, 1e-5), "state": (1e-4, 1e-4), 
 # 30x would be 4.6 Mbp), read length, band and width are not cut
 ENCODE = dict(ref_len=1_000_000, ref_seed=31, depth=5, seed=32, token_target=65536)
 DP_LANES = 1024  # the kernels phase's DP chunk: one full lane bucket (MAX_CHUNK_LANES)
-DP_OPS_PER_CELL = 20  # int32 operations a DP cell a row (diag, up, masks, prefix-min, left)
+# int32 operations of one DP cell in its per-cell form (csrc/banded_align.cu):
+# the window column's valid test (1), the match compare (1), the mismatch and
+# off-window penalties into diag (2), up + 1 (1), min(diag, up) and its move
+# bit (2), left + 1 and the off-window gate (2), the min with left and its
+# move bit (2), the move's three-way select (2)
+DP_OPS_PER_CELL = 13
 ISP_BLOCKS = (0, 8)  # the isp phase's block range of the Illumina container
 # the serve phase: one burst through SageServer on blocks no earlier phase
 # touched: 64 reads of 4 blocks (request i covers [start + 2i, start + 2i + 4)),
@@ -443,8 +454,18 @@ def ptxas_usage(lib: str, kernel: str) -> dict:
     return out
 
 
-def bound(nbytes: int, ops_: int, ops_per_s: float = INT_OPS_PER_S) -> tuple[float, str]:
-    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops_ / ops_per_s * 1e3
+@functools.cache
+def int32_ops_per_s() -> float:
+    """The card's int32 rate: INT_OPS_PER_CLOCK_PER_SM x its SMs x the max SM
+    clock nvidia-smi reports (clocks.max.sm)."""
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return INT_OPS_PER_CLOCK_PER_SM * sms * float(mhz) * 1e6
+
+
+def bound(nbytes: int, ops_: int, ops_per_s: float | None = None) -> tuple[float, str]:
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops_ / (ops_per_s or int32_ops_per_s()) * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -1697,7 +1718,7 @@ def main() -> None:
     card = smi()
     props = torch.cuda.get_device_properties(dev)
     emit("device", name=torch.cuda.get_device_name(0), smi=card, sms=props.multi_processor_count,
-         torch=torch.__version__, cuda=torch.version.cuda)
+         torch=torch.__version__, cuda=torch.version.cuda, int32_ops_per_s=int32_ops_per_s())
 
     # ---- build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1982,22 +2003,29 @@ def main() -> None:
     dp_cases = {}
     for name in sorted(CARD_DP_CASES):
         arrs, band = scan_inputs(name)
-        dp_cases[name] = dp_check([torch.from_numpy(a).to(dev) for a in arrs], band)
+        args = [torch.from_numpy(a).to(dev) for a in arrs]
+        plan = align_plan(args[0].shape[0], args[0].shape[1], band, args[1].shape[1])
+        dp_cases[name] = {**dp_check(args, band), "route": plan["route"],
+                          "ms": cuda_ms(lambda args=args, band=band: ops.banded_align(*args, band=band), 5)[0]}
+        del args
     B_, L_, W_ = dp_main["shape"]
     wmax = dp_args[1].shape[1]
     b_ms, b_by = bound(B_ * L_ * W_ + B_ * W_ * 4 + B_ * L_ * 4 + B_ * wmax * 4 + 2 * B_ * 4,
                        DP_OPS_PER_CELL * B_ * L_ * W_)
-    dp_plan = align_plan(B_, dp_band, wmax)
+    dp_plan = align_plan(B_, L_, dp_band, wmax)
     dp_err = max([dp_main["max_abs_err"]] + [c["max_abs_err"] for c in dp_cases.values()])
+    kname = f"align_scan_kernelILi{dp_plan['cells_per_thread']}ELb{int(dp_plan['route'] == 'ring')}E"
     table["align_scan"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/banded_align.cu",
         replaces="src/repro/kernels/banded_align.py:39", shape=dp_main["shape"], max_abs_err=dp_err,
         match=dp_err == 0, **timings(lambda: ops.banded_align(*dp_args, band=dp_band), 100,
                                      lambda: ref.banded_align_ref(*dp_args, band=dp_band), 2),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        plan={**dp_plan, **ptxas_usage("banded_align", f"align_scan_kernelILi{dp_plan['cells_per_thread']}E")})
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, cases=dp_cases,
+        bound_rate={"int32_ops_per_s": int32_ops_per_s(), "ops_per_cell": DP_OPS_PER_CELL},
+        plan={**dp_plan, **ptxas_usage("banded_align", kname)})
+    table["align_scan"]["bound_share"] = b_ms / table["align_scan"]["ms"]
     del dp_args, dp_rows
-    emit("kernels", tolerance={"B1-B5, align_scan": "bit-identical (max_abs_err 0)",
+    emit("kernels", int32_ops_per_s=int32_ops_per_s(), tolerance={"B1-B5, align_scan": "bit-identical (max_abs_err 0)",
                                "B6": {**B6_TOL, "rule": "(rtol, atol); matmul and cuDNN TF32 off"},
                                "B6 backward": {**B6_BWD_TOL, "rule": "(rtol, atol as a share of max|plain|)"}},
          ssd_bwd=table["ssd_intra_bwd"], ssd_bwd_checks=bwd_checks,
@@ -2241,7 +2269,8 @@ def main() -> None:
     kernels = [{"name": k, **{f: v[f] for f in (
         "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
         "bound_ms", "bound_by", "library_ms")}, **{f: v[f] for f in ("plan", "launch_floor_ms", "bound_share",
-                                                                  "decode", "zamba2") if f in v}}
+                                                                  "decode", "zamba2", "cases", "bound_rate")
+                                                       if f in v}}
         for k, v in table.items()]
     shutil.rmtree(WORK)
     emit("done", seconds=time.perf_counter() - t_start)

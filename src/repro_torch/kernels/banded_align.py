@@ -79,28 +79,38 @@ def _lib():
     lib = cuda_lib.lib("banded_align")
     lib.align_scan_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.align_scan_launch.restype = ctypes.c_int
-    lib.align_scan_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.align_scan_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     lib.align_scan_plan.restype = None
     lib.align_scan_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def align_plan(B: int, band: int, wmax: int) -> dict[str, int]:
-    """How the DP kernel runs ``B`` lanes at ``band`` with ``wmax``-column
-    windows (any number of rows): grid, threads a CTA, dynamic shared memory,
-    cells a thread (0: the width is too large), lanes a CTA and shared
-    bytes a lane (shared memory -1: a lane's window does not fit)."""
-    out = (ctypes.c_int * 6)()
-    _lib().align_scan_plan(B, band, wmax, out)
-    return {"grid": out[0], "threads": out[1], "smem_bytes": out[2], "cells_per_thread": out[3],
-            "lanes_per_cta": out[4], "lane_smem_bytes": out[5]}
+PLAN_KEYS = ("grid", "threads", "smem_bytes", "cells_per_thread", "threads_per_lane", "lanes_per_warp",
+             "lanes_per_cta", "lane_smem_bytes", "route", "ring_rows", "flush_steps", "window_steps",
+             "double_steps")
+ROUTES = {1: "ring", 0: "direct", -1: None}
+
+
+def align_plan(B: int, L: int, band: int, wmax: int) -> dict:
+    """How the DP kernel runs ``B`` lanes of ``L`` rows at ``band`` with
+    ``wmax``-column windows: grid, threads a CTA, dynamic shared memory,
+    cells (band positions) a thread, threads a lane, lanes a warp and a CTA,
+    shared bytes a lane, the moves' route ("ring": a shared-memory ring of
+    ``ring_rows`` rows flushed every ``flush_steps`` double steps; "direct":
+    straight to device memory; None: the kernel does not take the shape),
+    double steps a staging window, and double steps in all."""
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    _lib().align_scan_plan(B, L, band, wmax, out)
+    plan = dict(zip(PLAN_KEYS, out))
+    plan["route"] = ROUTES[plan["route"]]
+    return plan
 
 
 def align_scan(reads: torch.Tensor, wins: torch.Tensor, off0: torch.Tensor,
                wlen: torch.Tensor, *, band: int) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`align_scan_plain`'s function: the CUDA kernel for CUDA
-    tensors (one warp a lane, one launch for the batch), the plain version
-    for CPU tensors."""
+    tensors (an anti-diagonal wavefront over each lane's band, one launch
+    for the batch), the plain version for CPU tensors."""
     if reads.dim() != 2 or wins.dim() != 2 or off0.dim() != 1 or wlen.dim() != 1:
         raise ValueError("align_scan: reads (B, L), wins (B, Wmax), off0 (B,), wlen (B,)")
     B, L = reads.shape
@@ -114,10 +124,10 @@ def align_scan(reads: torch.Tensor, wins: torch.Tensor, off0: torch.Tensor,
         return align_scan_plain(reads, wins, off0, wlen, band=band)
     cuda_lib.require_cuda(reads, wins, off0, wlen, name="align_scan")
     wmax = wins.shape[1]
-    plan = align_plan(B, band, wmax)
-    if plan["cells_per_thread"] == 0 or plan["smem_bytes"] < 0 or wmax < 1:
+    plan = align_plan(B, L, band, wmax)
+    if plan["route"] is None:
         raise ValueError(f"align_scan: the kernel does not take band {band} with "
-                         f"{wmax}-column windows ({plan})")
+                         f"{L} rows and {wmax}-column windows ({plan})")
     width = 2 * band + 1
     moves = torch.empty((B, L, width), dtype=torch.uint8, device=reads.device)
     last = torch.empty((B, width), dtype=I32, device=reads.device)

@@ -25,9 +25,9 @@ from repro_torch.core.encoder import SageEncoder
 from repro_torch.genomics.batch_map import batch_map_reads
 from repro_torch.genomics.mapper import ReadMapper
 from repro_torch.genomics.synth import ReadSet
-from repro_torch.kernels.banded_align import align_rows, align_scan
+from repro_torch.kernels.banded_align import align_rows, align_scan, align_scan_plain
 
-from dp_cases import DP_CASES, dp_case, scan_inputs
+from dp_cases import DP_CASES, WAVEFRONT_CASES, dp_case, kernel_cells_per_thread, scan_inputs, wavefront_scan
 from test_encode_batch_parity import _mixed_read_set
 from torch_cases import encoded_case, reference
 
@@ -49,6 +49,25 @@ def test_align_scan_plain_matches_reference(case):
     assert mv.dtype == torch.uint8 and last.dtype == torch.int32
     np.testing.assert_array_equal(mv.numpy(), np.asarray(want_mv))
     np.testing.assert_array_equal(last.numpy(), np.asarray(want_last))
+
+
+@pytest.mark.parametrize("case", sorted(WAVEFRONT_CASES))
+def test_align_wavefront_order_matches_plain_and_reference(case):
+    """The DP kernel's own schedule, emulated in numpy (tests/dp_cases.py
+    ``wavefront_scan``: anti-diagonal double steps, each cell reading only
+    values made one or two steps before it as the kernel's registers and
+    shuffles hold them, the kernel's staged codes and its ring of moves), bit
+    for bit against the plain version, and against the JAX package's
+    ``_align_scan`` on its DP cases."""
+    arrs, band = scan_inputs(case)
+    mv, last = wavefront_scan(*arrs, band=band, cpt=kernel_cells_per_thread(2 * band + 1))
+    want_mv, want_last = align_scan_plain(*(torch.from_numpy(a) for a in arrs), band=band)
+    np.testing.assert_array_equal(mv, want_mv.numpy())
+    np.testing.assert_array_equal(last, want_last.numpy())
+    if case in DP_CASES:
+        ref_mv, ref_last = _align_scan(*(jnp.asarray(a) for a in arrs), band=band)
+        np.testing.assert_array_equal(mv, np.asarray(ref_mv))
+        np.testing.assert_array_equal(last, np.asarray(ref_last))
 
 
 @pytest.mark.parametrize("case", sorted(DP_CASES))

@@ -43,9 +43,9 @@ from repro_torch.core.layout import SageContainerV2, write_v2
 from repro_torch.genomics.synth import make_reference, sample_read_set
 from repro_torch.kernels import cuda_lib, ops, ref
 from repro_torch.kernels import sage_decode as SD
-from repro_torch.kernels.banded_align import align_plan, align_rows, align_scan
+from repro_torch.kernels.banded_align import _bucket, align_plan, align_rows, align_scan
 
-from dp_cases import CARD_DP_CASES, dp_case, scan_inputs
+from dp_cases import CARD_DP_CASES, dp_case, kernel_cells_per_thread, scan_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -852,7 +852,8 @@ def test_family_train_step_on_card_matches_cpu(cuda, arch, layers):
 def test_align_scan_kernel_matches_plain(cuda, case):
     """The DP kernel bit for bit against its plain version on the card, on
     every cell of moves and the last row (padded lanes included): widths
-    49, 289 and 641, a read shorter than the width, windows clipped at both
+    49, 289 and 641 (the shared-memory ring) and 1023 (moves straight to
+    device memory), a read shorter than the width, windows clipped at both
     consensus ends, code 4 in reads and consensus."""
     arrs, band = scan_inputs(case)
     t = [torch.from_numpy(a).to(cuda) for a in arrs]
@@ -879,11 +880,28 @@ def test_align_rows_on_card_matches_cpu(cuda):
         np.testing.assert_array_equal(a, b)
 
 
-def test_align_scan_kernel_plans_a_warp_per_lane(cuda):
-    plan = align_plan(1024, 24, 198)
-    assert plan["grid"] * plan["lanes_per_cta"] == 1024 and plan["threads"] == 32 * plan["lanes_per_cta"]
-    assert plan["cells_per_thread"] == 2
-    assert align_plan(64, 320, 3640)["cells_per_thread"] == 24
+def test_align_scan_kernel_plans_wavefront_layout_and_store_route(cuda):
+    """The plan of the encode chunk and of every card case: a lane's band
+    in one warp (threads a lane x cells a thread covers the width), the
+    moves in a shared-memory ring up to width 641 and straight to device
+    memory at width 1023, every lane in the grid, as the emulation's layout
+    (tests/dp_cases.py kernel_cells_per_thread)."""
+    plan = align_plan(1024, 150, 24, 198)
+    assert plan["route"] == "ring" and plan["cells_per_thread"] == kernel_cells_per_thread(49)
+    assert plan["ring_rows"] % 16 == 0 and plan["ring_rows"] >= plan["flush_steps"] + plan["cells_per_thread"] * plan["threads_per_lane"] // 2 - 1
+    assert plan["double_steps"] == 150 + plan["cells_per_thread"] * plan["threads_per_lane"] // 2 - 1
+    routes = {}
+    for name, (L, band, lanes) in CARD_DP_CASES.items():
+        width, B = 2 * band + 1, _bucket(lanes)
+        plan = align_plan(B, L, band, L + 2 * band)
+        assert plan["threads_per_lane"] * plan["cells_per_thread"] >= width > (plan["threads_per_lane"] - 1) * plan["cells_per_thread"]
+        assert plan["threads_per_lane"] * plan["lanes_per_warp"] <= 32
+        assert plan["grid"] * plan["lanes_per_cta"] >= B > (plan["grid"] - 1) * plan["lanes_per_cta"]
+        assert plan["threads"] == 32 * plan["lanes_per_cta"] // plan["lanes_per_warp"]
+        assert plan["smem_bytes"] == plan["lanes_per_cta"] * plan["lane_smem_bytes"] <= 232448
+        routes[width] = plan["route"]
+    assert routes == {49: "ring", 289: "ring", 641: "ring", 1023: "direct"}
+    assert align_plan(4, 150, 600, 1350)["route"] is None  # width 1201 > 1024
 
 
 def test_align_scan_kernel_refuses_what_it_cannot_take(cuda):
