@@ -3,8 +3,9 @@ SAGe_Read, SAGe_ISP (streams, the exact-match filter, the store-backed
 mapper), the LM token pipeline, mamba2-370m serving store-derived prompts,
 the multi-tenant SageServer frontend, the self-healing store (parity
 reconstruction, scrub, repair), mamba2-370m trained on SAGe k-mer tokens
-with checkpoints, and qwen2-1.5b (dense) and zamba2-2.7b (hybrid) served
-and trained at full width, through the hand-written CUDA kernels,
+with checkpoints, and qwen2-1.5b (dense), zamba2-2.7b (hybrid) and
+deepseek-moe-16b (moe, cut in depth) served and trained at full width,
+through the hand-written CUDA kernels,
 checked against the sequential numpy encoder and decoder, the plain torch
 versions and the CPU.
 
@@ -137,6 +138,19 @@ Phases, each printing one JSON line:
            once a Mamba2 layer a step; B6 backward's device ms inside the
            profiled step), the cut's train step and the attention against
            the CPU and the library
+  moe      deepseek-moe-16b at full width (d_model 2048, 16 / 16 heads of
+           128, 64 routed experts of d_ff 1408, top-6, 2 shared, vocab
+           102400, untied; weights from a seeded generator on the card),
+           cut in depth to fit the card (16.9 B parameters, 67.5 GB in
+           f32): 16 of 28 layers served, 4 trained; the dense phase's runs
+           (block 26688, tiles 3300-3301) plus the device time inside
+           moe_apply in each profile and the share of (token, choice) pairs
+           the serving prefill dropped past capacity; its card-vs-CPU cut
+           (2 layers; a 1-layer train step) routes the card as the CPU was
+           routed, every difference a near tie (tests/moe_cases.py), and
+           prints the share of decisions that agreed; its duality runs at
+           capacity_factor = 64 / 6, which drops no pair; the aux loss of
+           each training step
 Then the kernel table as one JSON line (B1's, B2's, B3's, B5's and B6
 backward's rows with their launch `plan`, B1's and B3's with the launch
 floor), the card's name and power limit,
@@ -199,6 +213,7 @@ try:
                                                ssd_intra_plain)
     from repro_torch.models import layers as LAYERS
     from repro_torch.models import lm
+    from repro_torch.models import moe as MOE
     from repro_torch.serving import SageServer, ServeConfig, ServingEngine, SessionPool, prompts_from_store
     from repro_torch.testing import FaultPlan, corrupt_extents, inject
     from repro_torch.training import Trainer, TrainerConfig, TrainOptions, init_train_state
@@ -207,6 +222,7 @@ try:
     sys.path.insert(0, str(ROOT / "tests"))
     from dp_cases import CARD_DP_CASES, scan_inputs  # the DP's card test cases (numpy + the port)
     from train_cases import compare_step, cut_batch, cut_models, one_step  # a train step, card vs CPU
+    from moe_cases import dropped_share, recorded, replayed  # the MoE router's decisions, card vs CPU
 except ImportError as e:  # run outside a checkout of the repository
     print(f"chip_smoke: cannot import the port ({e}); run from the repository root", file=sys.stderr)
     sys.exit(2)
@@ -270,19 +286,25 @@ HEAL = dict(tiles=128, parity_group=4, damaged=(5, 100), flip_block=300, repair_
 # fresh trainer and pipeline; a 2-layer full-width cut's step against the CPU
 TRAIN = dict(first_tile=3072, tiles=2, batch=8, seq=512, steps=8, ckpt_at=4, seed=5, lr=2e-3, warmup=2,
              cut_layers=2, cut_batch=2, resume_rtol=1e-3)
-# the dense and hybrid phases: qwen2-1.5b and zamba2-2.7b at full width,
-# weights from a seeded generator on the card. Each serves 8 prompts from an
-# Illumina block of a store of its own (512-token slots, 64 new tokens) and
-# trains on 8 x 512 k-mer tokens a step from two tiles of the Illumina layout
-# no earlier phase touched (qwen2 tiles 3100-3101, blocks 24800-24815;
-# zamba2 tiles 3200-3201, blocks 25600-25615), with no checkpoint (a save
+# the dense, hybrid and moe phases: qwen2-1.5b, zamba2-2.7b and
+# deepseek-moe-16b at full width, weights from a seeded generator on the
+# card. Each serves 8 prompts from an Illumina block of a store of its own
+# (512-token slots, 64 new tokens) and trains on 8 x 512 k-mer tokens a step
+# from two tiles of the Illumina layout no earlier phase touched (qwen2 tiles
+# 3100-3101, blocks 24800-24815; zamba2 tiles 3200-3201, blocks 25600-25615;
+# deepseek tiles 3300-3301, blocks 26400-26415), with no checkpoint (a save
 # would be ~18 GB); the CPU checks run on a depth cut (zamba2's: one group
-# of 6 Mamba2 layers and the shared block)
+# of 6 Mamba2 layers and the shared block). deepseek-moe-16b (16.9 B
+# parameters, 67.5 GB in f32) does not fit the card whole: it serves 16 of
+# its 28 layers (f32 weights and their bf16 copies, ~58 GB) and trains 4
+# (2.77 B parameters at 16 bytes each for parameters, gradients, m and v)
 FAMILY = {
     "dense": dict(arch="qwen2-1.5b", seed=11, prompt_block=26624, first_tile=3100, steps=4, cut_layers=4,
                   train_cut_layers=2),
     "hybrid": dict(arch="zamba2-2.7b", seed=12, prompt_block=26656, first_tile=3200, steps=3, cut_layers=6,
                    train_cut_layers=6),
+    "moe": dict(arch="deepseek-moe-16b", seed=13, prompt_block=26688, first_tile=3300, steps=3, cut_layers=2,
+                train_cut_layers=1, serve_layers=16, train_layers=4),
 }
 FAMILY_RUN = dict(prompts=8, tiles=2, batch=8, seq=512, lr=2e-3, warmup=2, cpu_prompts=2, duality_tokens=160,
                   duality_chunk=64, prefill_runs=2, decode_steps=8, profile_steps=4, cut_batch=2, cut_seq=128,
@@ -1429,26 +1451,35 @@ def attention_yardstick(cfg, dev, seed: int) -> dict:
 
 
 def family_phase(dev, kind: str, src: SageFile, oracle: "Oracle") -> dict:
-    """A dense (qwen2-1.5b) or hybrid (zamba2-2.7b) LM at full width on the
-    card, weights from a seeded generator:
+    """A dense (qwen2-1.5b), hybrid (zamba2-2.7b) or moe (deepseek-moe-16b)
+    LM at full width on the card, weights from a seeded generator (the moe
+    model cut in depth: ``serve_layers`` served, ``train_layers`` trained):
 
     (a) serving: 8 prompts from an Illumina block through a fused kmer
         session of a store of its own (B1, B5), two greedy generate calls
         (the hybrid: B6 once a Mamba2 layer a step), held against the CPU's
         prompts and each other; TTFT, decode ms a step, tokens/s, peak
         memory, profiles of a prefill and 4 decode steps with the device
-        time inside the attention;
+        time inside the attention (and inside ``moe_apply``); the moe
+        family's share of (token, choice) pairs its prefill dropped;
     (b) a depth cut against the CPU: f32 and bf16 prefill logits and the
-        cache of 2 prompts of 512 tokens;
+        cache of 2 prompts of 512 tokens (the moe family's card routed as
+        the CPU was, every difference a near tie, and the share of
+        decisions that agreed);
     (c) the duality on the cut (f32): step-by-step decode against the
-        chunked forward, and its cache against a chunked prefill's;
+        chunked forward, and its cache against a chunked prefill's (the
+        moe family at capacity_factor = n_experts / top_k, which drops no
+        pair: a prefill at the default factor may drop pairs that one-token
+        decode steps keep);
     (d) training through the Trainer (no checkpoint) on a fused
         SageTokenPipeline: every batch against refdec's k-mer stream, the
         loss falls, launch counts from 0 (the hybrid: B6 forward twice a
         Mamba2 layer a step, backward once); step ms, tokens/s, peak
-        memory, a profiled step (busy share, top device ops, attention);
+        memory, a profiled step (busy share, top device ops, attention,
+        ``moe_apply``); the moe family's aux loss each step;
     (e) a depth cut's train step (f32) against the CPU within
-        tests/train_cases.py's bounds;
+        tests/train_cases.py's bounds (the moe family's card routed as the
+        CPU was);
     (f) the attention beside scaled_dot_product_attention at the train
         shape.
     Returns the launches of the serving and training paths."""
@@ -1460,10 +1491,14 @@ def family_phase(dev, kind: str, src: SageFile, oracle: "Oracle") -> dict:
         now = time.perf_counter()
         parts[name] = now - t_part[0]
         t_part[0] = now
-    cfg = get_arch(spec["arch"])
+    whole = get_arch(spec["arch"])
+    cfg = dataclasses.replace(whole, n_layers=spec.get("serve_layers", whole.n_layers))
+    moe = cfg.family == "moe"
     n_ssm = cfg.n_layers if cfg.family == "hybrid" else 0
     focus = "ssd" if n_ssm else ""
     attn = [(LAYERS, "attention_train"), (LAYERS, "_flash_fwd_impl")]
+    # moe_apply and its parts: the router, the dispatch and within it the expert products
+    experts = [(MOE, "moe_apply"), (MOE, "route"), (MOE, "_dispatch_ffn"), (MOE, "_expert_ffn")] if moe else []
 
     # (a) serving
     t0 = time.perf_counter()
@@ -1540,10 +1575,16 @@ def family_phase(dev, kind: str, src: SageFile, oracle: "Oracle") -> dict:
         return tok
 
     serve_prof = {
-        "prefill": profile_window(lambda _i: lm.prefill(model, cfg, toks, max_len), focus=focus, ranges=attn),
+        "prefill": profile_window(lambda _i: lm.prefill(model, cfg, toks, max_len), focus=focus,
+                                  ranges=attn + experts),
         f"decode_{run['profile_steps']}_steps": profile_window(decode_window, focus=focus,
-                                                               ranges=[(LAYERS, "attention_decode")])}
-    del model, engine, cache, logits, lg
+                                                               ranges=[(LAYERS, "attention_decode")] + experts)}
+    routed = []
+    if moe:  # the pairs the serving prefill dropped past capacity, every layer
+        with recorded(routed):
+            lm.prefill(model, cfg, toks, max_len)
+    dropped = dropped_share(routed, cfg) if moe else None
+    del model, engine, cache, logits, lg, routed
     torch.cuda.empty_cache()
     part("serve")
 
@@ -1555,13 +1596,20 @@ def family_phase(dev, kind: str, src: SageFile, oracle: "Oracle") -> dict:
     t_cpu = torch.as_tensor(rand)
     vs_cpu = {}
     for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 5e-2)):
-        lg_d, c_d = lm.prefill(m_dev, cut, t_cpu.to(dev), dtype=dtype)
+        log, routing = [], {}
         c0 = time.perf_counter()
-        lg_c, c_c = lm.prefill(m_cpu, cut, t_cpu, dtype=dtype)
+        with recorded(log) if moe else contextlib.nullcontext():
+            lg_c, c_c = lm.prefill(m_cpu, cut, t_cpu, dtype=dtype)
+        cpu_s = time.perf_counter() - c0
+        with replayed(log, routing) if moe else contextlib.nullcontext():
+            lg_d, c_d = lm.prefill(m_dev, cut, t_cpu.to(dev), dtype=dtype)
         name = str(dtype)[6:]
         kv_err = max(max_abs_err(c_d[kk].cpu(), c_c[kk]) for kk in ("k", "v"))
         vs_cpu[name] = {"logits_err": max_abs_err(lg_d.cpu(), lg_c), "tol": tol, "kv_err": kv_err,
-                        "logits_max": float(lg_c.float().abs().max()), "cpu_seconds": time.perf_counter() - c0}
+                        "logits_max": float(lg_c.float().abs().max()), "cpu_seconds": cpu_s}
+        if moe:
+            vs_cpu[name]["routing"] = {**routing, "agreed_share": routing["agreed"] / routing["decisions"],
+                                       "dropped_share": dropped_share(log, cut)}
         if "ssm" in c_c:
             vs_cpu[name]["state_err"] = state_err(c_d["ssm"], c_c["ssm"])
         assert bool(torch.allclose(lg_d.cpu().float(), lg_c.float(), rtol=tol, atol=tol)), (name, vs_cpu[name])
@@ -1577,6 +1625,8 @@ def family_phase(dev, kind: str, src: SageFile, oracle: "Oracle") -> dict:
     # 40 of 160 tokens) against step-by-step decode
     T = run["duality_tokens"]
     t2 = torch.as_tensor(rand[:, :T], device=dev)
+    if moe:
+        cut = dataclasses.replace(cut, capacity_factor=cut.n_experts / cut.moe_top_k)
     with torch.no_grad():
         full, _ = lm.forward(m_dev, cut, t2, chunk=run["duality_chunk"], dtype=torch.float32)
     _lg, pre = lm.prefill(m_dev, cut, t2, T, chunk=run["duality_chunk"], dtype=torch.float32)
@@ -1587,7 +1637,8 @@ def family_phase(dev, kind: str, src: SageFile, oracle: "Oracle") -> dict:
         outs.append(lg[:, 0])
     dec = torch.stack(outs, dim=1)
     duality = {"logits_err": max_abs_err(dec, full), "kv_err": max(max_abs_err(dcache[kk], pre[kk]) for kk in ("k", "v")),
-               "tol": 2e-2, "tokens": T, "chunk": LAYERS._pick_chunk(T, run["duality_chunk"])}
+               "tol": 2e-2, "tokens": T, "chunk": LAYERS._pick_chunk(T, run["duality_chunk"]),
+               "capacity_factor": cut.capacity_factor if moe else None}
     assert bool(torch.allclose(dec, full, rtol=2e-2, atol=2e-2)), duality
     assert all(bool(torch.allclose(dcache[kk], pre[kk], rtol=2e-2, atol=2e-2)) for kk in ("k", "v")), duality
     if "ssm" in pre:
@@ -1599,6 +1650,7 @@ def family_phase(dev, kind: str, src: SageFile, oracle: "Oracle") -> dict:
     part("duality")
 
     # (d) training: the Trainer over a fused pipeline on tiles of their own
+    cfg = dataclasses.replace(whole, n_layers=spec.get("train_layers", whole.n_layers))
     n_src = src.meta.n_blocks
     data = WORK / f"{kind}_train.sage2"
     write_v2(tile_sage_file(src, run["tiles"], first=spec["first_tile"]), data)
@@ -1622,6 +1674,16 @@ def family_phase(dev, kind: str, src: SageFile, oracle: "Oracle") -> dict:
     model, opt = init_train_state(torch.Generator(device=dev).manual_seed(spec["seed"] + 2), cfg, opts, device=dev)
     tc = TrainerConfig(total_steps=S_, ckpt_every=S_ + 1, log_every=1, ckpt_dir=str(WORK / f"{kind}_ckpt"))
     trainer = NoSaveTrainer(tc, cfg, opts, model, opt, tap(pipe.batches()))
+    train_params = sum(p.numel() for p in model.parameters())
+    auxes = []
+    step_fn = trainer.step_fn
+
+    def step_and_aux(*a):  # keeps each step's aux loss (a 0-d tensor; read after the run)
+        out = step_fn(*a)
+        auxes.append(out[2]["aux"])
+        return out
+
+    trainer.step_fn = step_and_aux
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_trace_counts()
@@ -1640,12 +1702,14 @@ def family_phase(dev, kind: str, src: SageFile, oracle: "Oracle") -> dict:
     assert (train_n["ssd_intra"], train_n["ssd_intra_bwd"]) == (2 * n_ssm * S_, n_ssm * S_), train_n
     assert len(losses) == S_ and all(np.isfinite(losses)), losses
     assert losses[-1] < losses[0], f"training did not reduce the loss: {losses}"
+    aux = [float(a) for a in auxes]
+    assert all(np.isfinite(aux)) and (min(aux) > 0) == moe, aux
 
     def one_step_of_run(_i):  # one more step of the run (after the checks of its losses: it moves the model on)
         b = {kk: torch.as_tensor(v).to(dev) for kk, v in next(trainer.data).items()}
         return trainer.step_fn(trainer.model, trainer.opt, b)[2]["loss"]
 
-    train_prof = profile_window(one_step_of_run, focus=focus, ranges=attn + [(LAYERS, "_flash_bwd")],
+    train_prof = profile_window(one_step_of_run, focus=focus, ranges=attn + [(LAYERS, "_flash_bwd")] + experts,
                                kernels=("ssd_bwd",))
     need = run["batch"] * (run["seq"] + 1)
     base = spec["first_tile"] * n_src
@@ -1663,14 +1727,19 @@ def family_phase(dev, kind: str, src: SageFile, oracle: "Oracle") -> dict:
     # (e) a depth cut's train step (f32 activations) against the CPU
     cut2, c_dev, c_cpu = cut_models(cfg, spec["train_cut_layers"], dev, seed=spec["seed"] + 3)
     cb = cut_batch(cut2, run["cut_batch"], run["cut_seq"], seed=spec["seed"])
+    log, routing = [], {}
     c0 = time.perf_counter()
-    on_card = one_step(cut2, c_dev, cb, dev)
+    with recorded(log) if moe else contextlib.nullcontext():
+        on_cpu = one_step(cut2, c_cpu, cb, "cpu")
     c1 = time.perf_counter()
-    on_cpu = one_step(cut2, c_cpu, cb, "cpu")
+    with replayed(log, routing) if moe else contextlib.nullcontext():
+        on_card = one_step(cut2, c_dev, cb, dev)
     c2 = time.perf_counter()
     step_vs_cpu = compare_step(on_card, on_cpu, dev)
-    step_vs_cpu.update(seconds=time.perf_counter() - c0, card_step_seconds=c1 - c0, cpu_step_seconds=c2 - c1,
+    step_vs_cpu.update(seconds=time.perf_counter() - c0, card_step_seconds=c2 - c1, cpu_step_seconds=c1 - c0,
                        compare_seconds=time.perf_counter() - c2)
+    if moe:
+        step_vs_cpu["routing"] = {**routing, "agreed_share": routing["agreed"] / routing["decisions"]}
     del c_dev, c_cpu, on_card, on_cpu
     torch.cuda.empty_cache()
     part("train_cut_vs_cpu")
@@ -1683,18 +1752,22 @@ def family_phase(dev, kind: str, src: SageFile, oracle: "Oracle") -> dict:
     n_tok = run["prompts"] * sc.max_new
     tok = run["batch"] * run["seq"]
     steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
-    emit(kind, arch=cfg.name, family=cfg.family, params=n_params, layers=cfg.n_layers, d_model=cfg.d_model,
-         heads=[cfg.n_heads, cfg.n_kv_heads, cfg.head_dim], d_ff=cfg.d_ff, vocab=cfg.vocab, kmer_k=k,
+    moe_shape = {"experts": cfg.n_experts, "top_k": cfg.moe_top_k, "expert_d_ff": cfg.expert_d_ff,
+                 "shared": cfg.n_shared_experts, "capacity_factor": whole.capacity_factor} if moe else None
+    emit(kind, arch=cfg.name, family=cfg.family, params=n_params, layers=whole.n_layers,
+         serve_layers=spec.get("serve_layers", whole.n_layers), train_layers=cfg.n_layers, d_model=cfg.d_model,
+         heads=[cfg.n_heads, cfg.n_kv_heads, cfg.head_dim], d_ff=cfg.d_ff, vocab=cfg.vocab, moe=moe_shape, kmer_k=k,
          init_seconds=init_s,
          serve={"prompts": len(prompts), "prompt_kmers": [int(p.size) for p in prompts], "prompt_seconds": prompt_s,
                 "max_prompt": sc.max_prompt, "max_new": sc.max_new, "generate_seconds": gen_s,
                 "generate_tokens_per_s": [n_tok / g for g in gen_s], "ssd_launches_per_generate": per_gen,
                 "launches": serve_n, "peak_device_bytes": serve_peak, "ttft_ms": ttft,
                 "decode_ms_per_step": dec_s / steps * 1e3, "decode_tokens_per_s": run["prompts"] * steps / dec_s,
-                "first_tokens": out[:, :8].tolist(), "profile": serve_prof},
+                "first_tokens": out[:, :8].tolist(), "prefill_dropped_share": dropped, "profile": serve_prof},
          card_vs_cpu={"cut_layers": spec["cut_layers"], "prompts": run["cpu_prompts"], **vs_cpu},
          duality=duality,
-         train={"batch": run["batch"], "seq": run["seq"], "steps": S_, "remat": "nothing", "dtype": "bfloat16",
+         train={"params": train_params, "batch": run["batch"], "seq": run["seq"], "steps": S_, "remat": "nothing",
+                "dtype": "bfloat16", "aux": aux,
                 "blocks": [base, base + run["tiles"] * n_src], "losses": losses, "step_ms": step_ms,
                 "median_step_ms_after_first": steady, "tokens_per_s": tok / (steady / 1e3), "run_seconds": run_s,
                 "launches": train_n, "launches_per_step": {kk: v / S_ for kk, v in train_n.items()},

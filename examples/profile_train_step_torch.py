@@ -10,6 +10,7 @@ two trees of the port one after the other (``PYTHONPATH`` picks the tree):
 
   PYTHONPATH=src python examples/profile_train_step_torch.py --arch mamba2-370m
   PYTHONPATH=src python examples/profile_train_step_torch.py --device cpu --reduced --seq 64
+  PYTHONPATH=src python examples/profile_train_step_torch.py --arch deepseek-moe-16b --device cpu --reduced --seq 64
 
 Prints one JSON line.
 """

@@ -4,11 +4,12 @@ port of ``src/repro/launch/serve.py``), on the card unless asked for the CPU.
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --requests 16 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --requests 4 --max-new 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b --requests 8 --max-new 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b --smoke --device cpu --requests 4 --max-new 8
 
 ``--arch`` (default ``mamba2-370m``) takes a configuration of the ssm,
-dense or hybrid family (mamba2-370m, qwen2-1.5b, yi-9b, yi-34b,
-minitron-8b, zamba2-2.7b); the moe, vlm and encdec families raise,
-naming the ROADMAP slice that brings them.
+dense, moe or hybrid family (mamba2-370m, qwen2-1.5b, yi-9b, yi-34b,
+minitron-8b, deepseek-moe-16b, moonshot-v1-16b-a3b, zamba2-2.7b); the vlm
+and encdec families raise, naming the ROADMAP slice that brings them.
 ``--smoke`` serves the config's ``reduced()`` cut. Weights are drawn from a
 ``torch.Generator`` seeded with 0. ``--frontend`` (default) drives
 the full scheduler + continuous-batching stack; ``--no-frontend`` keeps the

@@ -1,17 +1,19 @@
-"""Language models over SAGe's k-mer tokens, three families of the JAX
+"""Language models over SAGe's k-mer tokens, four families of the JAX
 package's ``lm.py``:
 
   ssm     embed -> [Mamba2 block] x L -> norm -> head
   dense   embed -> [GQA attention + MLP] x L -> norm -> head
+  moe     embed -> [GQA attention + MoE] x L -> norm -> head
   hybrid  embed -> [groups: attn_every Mamba2 blocks + ONE shared
           attention block] -> norm -> head (zamba2)
 
 Activations flow in bf16 by default and parameters live in f32, as in the
 JAX package; ``dtype=`` runs the same code in f32. Parameter names follow
 the JAX package's keys (``embed``, ``norm_f``, ``layers.<i>.norm1``,
-``layers.<i>.attn.wq``, the hybrid's ``layers.<g>.<j>.ssm.in_x`` and
-``shared_attn.mlp.up``, ...), matrices keep its ``(d_in, d_out)`` layout,
-and the JAX package's stacked layer parameters map onto them through
+``layers.<i>.attn.wq``, the moe family's ``layers.<i>.moe.experts.up``,
+the hybrid's ``layers.<g>.<j>.ssm.in_x`` and ``shared_attn.mlp.up``,
+...), matrices keep its ``(d_in, d_out)`` layout, and the JAX package's
+stacked layer parameters map onto them through
 ``repro_torch.convert.lm_params_from_reference``.
 
 The entry points (``init_params``, ``init_cache``) build on the card
@@ -21,14 +23,16 @@ unless the caller asks for the CPU (``device="cpu"``); without a card,
 ``init_cache`` dispatch on ``cfg.family`` as the JAX package does.
 
 Training runs ``forward`` under autograd (``training.steps``), with each
-block checkpointed (``remat``) as the JAX package does: every dense block,
-and every Mamba2 block of the hybrid, whose shared attention block is not
-checkpointed. Serving (``prefill``, ``decode_step``) runs without
-autograd. With grad mode off every layer keeps one copy of its matrices
-(and the model one of its embedding) in the compute dtype, made once
-(``layers.cast_once``); the values equal JAX's per-call ``astype``.
+block checkpointed (``remat``) as the JAX package does: every dense and
+moe block, and every Mamba2 block of the hybrid, whose shared attention
+block is not checkpointed. The moe family's ``forward`` also returns the
+sum of its layers' load-balance aux losses. Serving (``prefill``,
+``decode_step``) runs without autograd. With grad mode off every layer
+keeps one copy of its matrices (and the model one of its embedding) in
+the compute dtype, made once (``layers.cast_once``); the values equal
+JAX's per-call ``astype``.
 
-The moe, vlm and encdec families raise ``NotImplementedError`` naming the
+The vlm and encdec families raise ``NotImplementedError`` naming the
 ROADMAP slice that brings them.
 """
 
@@ -42,11 +46,11 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 
 from repro_torch.core.decode_torch import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import BF16, cast_once, dense_init, embed_init, rmsnorm
 
 _NOT_PORTED = {
-    "moe": "attention and expert layers (models/moe.py)",
     "vlm": "M-RoPE and patch embeddings",
     "encdec": "the encoder-decoder stack (LayerNorm, cross attention, learned positions)",
 }
@@ -57,7 +61,7 @@ def _require_ported(cfg) -> None:
         why = _NOT_PORTED.get(cfg.family, "its layers")
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet ({why}); it comes with "
-            f"ROADMAP Queue A, slice 6b part 3: the moe, vlm and encdec families"
+            f"ROADMAP Queue A, slice 6b part 3: the vlm and encdec families"
         )
 
 
@@ -106,6 +110,40 @@ class AttnBlock(nn.Module):
         return self._mlp(x + h, cfg)
 
 
+class MoEBlock(nn.Module):
+    """Pre-norm residual attention + MoE block (the moe family's layer):
+    :class:`AttnBlock`'s attention, then the MoE in place of the MLP, under
+    the reference's keys norm1, norm2, attn and moe."""
+
+    def __init__(self, cfg, gen: torch.Generator) -> None:
+        super().__init__()
+        self.norm1 = nn.Parameter(torch.zeros((cfg.d_model,), device=gen.device))
+        self.norm2 = nn.Parameter(torch.zeros((cfg.d_model,), device=gen.device))
+        self.attn = L.Params(L.attn_init(gen, cfg))
+        self.moe = M.MoE(M.moe_init(gen, cfg))
+
+    def _moe(self, x, cfg):
+        h, aux = M.moe_apply(self.moe.params(x.dtype), rmsnorm(x, self.norm2, cfg.norm_eps), cfg)
+        return x + h, aux
+
+    def forward(self, x, cfg, chunk: int = 1024, collect_kv: bool = False):
+        """Training / prefill over (B, S, d): (x, aux), and with
+        ``collect_kv`` (x, aux, (k, v)) for the cache."""
+        h = L.attention_train(self.attn.params(x.dtype), rmsnorm(x, self.norm1, cfg.norm_eps), cfg,
+                              chunk=chunk, collect_kv=collect_kv)
+        if collect_kv:
+            h, kv = h
+            return (*self._moe(x + h, cfg), kv)
+        return self._moe(x + h, cfg)
+
+    def decode(self, x, cfg, cache_k, cache_v, cur_index: int):
+        """One token (B, 1, d); writes its K and V into the cache views. The
+        aux loss is dropped, as the reference's decode drops it."""
+        h, _, _ = L.attention_decode(self.attn.params(x.dtype), rmsnorm(x, self.norm1, cfg.norm_eps),
+                                     cache_k, cache_v, cur_index, cfg)
+        return self._moe(x + h, cfg)[0]
+
+
 class _LM(nn.Module):
     """Embedding, final norm and head; weights are drawn from ``gen`` on
     ``device`` (``gen`` must live there). The families add their layers."""
@@ -147,6 +185,14 @@ class DenseLM(_LM):
         self.layers = nn.ModuleList(AttnBlock(cfg, gen) for _ in range(cfg.n_layers))
 
 
+class MoELM(_LM):
+    """The moe family: ``layers`` holds ``cfg.n_layers`` :class:`MoEBlock`."""
+
+    def __init__(self, cfg, gen: torch.Generator, device="cuda") -> None:
+        super().__init__(cfg, gen, device)
+        self.layers = nn.ModuleList(MoEBlock(cfg, gen) for _ in range(cfg.n_layers))
+
+
 class HybridLM(_LM):
     """The hybrid family (zamba2): ``layers`` holds ``n_layers //
     attn_every`` groups of ``attn_every`` :class:`Mamba2Block`, and
@@ -162,7 +208,7 @@ class HybridLM(_LM):
         self.shared_attn = AttnBlock(cfg, gen)
 
 
-MODELS = {"ssm": Mamba2LM, "dense": DenseLM, "hybrid": HybridLM}
+MODELS = {"ssm": Mamba2LM, "dense": DenseLM, "moe": MoELM, "hybrid": HybridLM}
 
 
 def init_params(gen: torch.Generator, cfg, *, device="cuda") -> _LM:
@@ -190,6 +236,7 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 
 def _block(layer, x, cfg, chunk):
+    """A layer's training forward: x, or the moe block's (x, aux)."""
     if isinstance(layer, Mamba2Block):
         return layer(x, cfg)[0]
     return layer(x, cfg, chunk)
@@ -198,13 +245,16 @@ def _block(layer, x, cfg, chunk):
 def forward(model: _LM, cfg, tokens, *, remat: bool = True, remat_policy: str = "nothing",
             chunk: int = 1024, dtype=BF16):
     """Training/prefill forward over ``tokens`` (B, S). Returns (logits
-    (B, S, V), aux loss 0.0).
+    (B, S, V), aux loss): the moe family's aux is the sum of its layers'
+    load-balance losses, a 0-d f32 tensor; the other families give 0.0.
 
-    With ``remat`` and grad mode on, each dense block and each Mamba2 block
-    runs under ``torch.utils.checkpoint`` (non-reentrant): its activations
-    are dropped and recomputed in the backward, so its forward (B6, the
-    attention) runs twice a step; the hybrid's shared block is not
-    checkpointed (``lm.py:196-208`` of the JAX package). ``remat_policy``
+    With ``remat`` and grad mode on, each dense or moe block and each
+    Mamba2 block runs under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are dropped and recomputed in the backward, so its forward
+    (B6, the attention, the MoE dispatch) runs twice a step; a moe block's
+    aux leaves the checkpoint beside x, as a tuple output. The hybrid's
+    shared block is not checkpointed (``lm.py:196-208`` of the JAX
+    package). ``remat_policy``
     ``"nothing"`` keeps only each block's input, ``"dots"`` also the
     outputs of its 2-D matrix products. ``chunk`` is the attention's KV
     block size."""
@@ -222,16 +272,22 @@ def forward(model: _LM, cfg, tokens, *, remat: bool = True, remat_policy: str = 
             return _block(layer, x, cfg, chunk)
         return checkpoint(_block, layer, x, cfg, chunk, use_reentrant=False, **kw)
 
+    aux_total = 0.0
     if cfg.family == "hybrid":
         for group in model.layers:
             for layer in group:
                 x = run(layer, x)
             x = model.shared_attn(x, cfg, chunk)
+    elif cfg.family == "moe":
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for layer in model.layers:
+            x, aux = run(layer, x)
+            aux_total = aux_total + aux
     else:
         for layer in model.layers:
             x = run(layer, x)
     x = rmsnorm(x, model.norm_f, cfg.norm_eps)
-    return _head(model, x), 0.0
+    return _head(model, x), aux_total
 
 
 def _stacked_state(cfg, lead: tuple, batch: int, device) -> dict:
@@ -244,7 +300,8 @@ def init_cache(cfg, batch: int, max_len: int, dtype=BF16, device="cuda") -> dict
 
     * ssm: ``{"ssm"}``, each layer's conv tails and SSM state stacked on a
       leading L axis (f32, as the JAX package makes it);
-    * dense: ``{"k", "v"}``, (L, batch, max_len, KV, Dh) in ``dtype``;
+    * dense and moe: ``{"k", "v"}``, (L, batch, max_len, KV, Dh) in
+      ``dtype``;
     * hybrid: ``{"ssm"}`` stacked on (groups, attn_every) and ``{"k", "v"}``
       of the shared block, (groups, batch, max_len, KV, Dh).
 
@@ -254,7 +311,7 @@ def init_cache(cfg, batch: int, max_len: int, dtype=BF16, device="cuda") -> dict
     dev = resolve_device(device)
     if cfg.family == "ssm":
         return {"ssm": _stacked_state(cfg, (cfg.n_layers,), batch, dev)}
-    n = cfg.n_layers if cfg.family == "dense" else cfg.n_layers // cfg.attn_every
+    n = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
     shape = (n, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     cache = {"k": torch.zeros(shape, dtype=dtype, device=dev), "v": torch.zeros(shape, dtype=dtype, device=dev)}
     if cfg.family == "hybrid":
@@ -280,7 +337,7 @@ def decode_step(model: _LM, cfg, token, cache, cur_index: int, *, dtype=BF16):
     one a step."""
     _require_ported(cfg)
     x = _embed(model, token, dtype)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         for i, layer in enumerate(model.layers):
             x = layer.decode(x, cfg, cache["k"][i], cache["v"][i], cur_index)
     else:
@@ -313,10 +370,11 @@ def prefill(model: _LM, cfg, tokens, max_len: Optional[int] = None, *, chunk: in
     max_len = S_ if max_len is None else max_len
     x = _embed(model, tokens, dtype)
     states, kvs = [], []
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         for layer in model.layers:
-            x, kv = layer(x, cfg, chunk, collect_kv=True)
-            kvs.append(kv)
+            out = layer(x, cfg, chunk, collect_kv=True)  # (x, kv), or the moe block's (x, aux, kv)
+            x = out[0]
+            kvs.append(out[-1])
     else:
         hybrid = cfg.family == "hybrid"
         for group in (model.layers if hybrid else [model.layers]):
@@ -341,5 +399,5 @@ def prefill(model: _LM, cfg, tokens, max_len: Optional[int] = None, *, chunk: in
     return _head(model, x[:, -1:]), cache
 
 
-__all__ = ["MODELS", "Mamba2Block", "AttnBlock", "Mamba2LM", "DenseLM", "HybridLM", "init_params", "forward", "init_cache",
-           "decode_step", "prefill"]
+__all__ = ["MODELS", "Mamba2Block", "AttnBlock", "MoEBlock", "Mamba2LM", "DenseLM", "MoELM", "HybridLM", "init_params",
+           "forward", "init_cache", "decode_step", "prefill"]

@@ -110,7 +110,7 @@ class ServeConfig:
 
 class ServingEngine:
     """Padded-slot prefill + decode loop over one model of any ported
-    family (``lm.init_params``: ssm, dense or hybrid; it builds on ``cuda``
+    family (``lm.init_params``: ssm, dense, moe or hybrid; it builds on ``cuda``
     unless asked for the CPU), on the device of its parameters. The
     prompts are left-padded into their slots; the pad positions are valid
     attention keys, as in the JAX package.

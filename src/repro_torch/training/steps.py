@@ -46,7 +46,7 @@ def loss_fn(model, cfg, batch: dict, opts: TrainOptions):
     if extra:
         raise NotImplementedError(
             f"batch inputs {extra} belong to the vlm / encdec families, which come with "
-            f"ROADMAP Queue A, slice 6b part 3: the moe, vlm and encdec families")
+            "ROADMAP Queue A, slice 6b part 3")
     logits, aux = lm.forward(model, cfg, batch["tokens"], remat=opts.remat,
                              remat_policy=opts.remat_policy, chunk=opts.chunk)
     loss = softmax_xent(logits, batch["labels"], batch.get("loss_mask"))

@@ -226,12 +226,13 @@ def greedy_matches(stores, arch, scale):
     assert sum(n_cmp) >= want.size // 2, n_cmp  # the comparison is not empty
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "deepseek-moe-16b", "zamba2-2.7b"])
 def test_greedy_generation_matches_reference_f32(stores, arch, monkeypatch):
     """Both engines with f32 activations (prefill and decode_step patched on
     both sides): every prompt's greedy tokens equal JAX's at every step,
     and the logits agree within 1e-4 (sums in another order); at the
-    init scale the top-2 margins stay far above that."""
+    init scale the top-2 margins stay far above that. The moe family
+    (deepseek-moe-16b) routes each step as the reference does."""
     ours_s, _ = stores
     jcfg, params, cfg, model = make_models(arch=arch)
     for mod, dt in ((JLM, jnp.float32), (lm, torch.float32)):

@@ -1,5 +1,5 @@
-"""Import guard: the PyTorch port and chip_smoke.py never import JAX or the
-JAX package, and every module of the port imports on a machine without a
+"""Import guard: the PyTorch port, chip_smoke.py and the case modules it
+takes from tests/ never import JAX or the JAX package, and every module of the port imports on a machine without a
 card, nvcc or triton."""
 
 import ast
@@ -45,7 +45,8 @@ def _imported_roots(path: Path) -> set[str]:
 
 
 def test_chip_smoke_and_port_sources_never_import_jax_or_reference():
-    files = [ROOT / "chip_smoke.py", *sorted((ROOT / "src" / "repro_torch").rglob("*.py"))]
+    shared = [ROOT / "tests" / f for f in ("dp_cases.py", "train_cases.py", "moe_cases.py")]  # chip_smoke imports them
+    files = [ROOT / "chip_smoke.py", *shared, *sorted((ROOT / "src" / "repro_torch").rglob("*.py"))]
     for f in files:
         roots = _imported_roots(f)
         assert not roots & {"jax", "jaxlib", "repro"}, (f, roots)

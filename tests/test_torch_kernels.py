@@ -26,6 +26,11 @@ The attention and the dense and hybrid families (qwen2-1.5b, zamba2-2.7b
 depth cuts at full width) against the CPU:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_kernels.py -k "flash or family"
+
+The MoE layer and the moe family (deepseek-moe-16b at full width) against
+the CPU, and the layer's determinism and host-sync freedom:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_kernels.py -k moe
 """
 
 import dataclasses
@@ -843,6 +848,104 @@ def test_family_train_step_on_card_matches_cpu(cuda, arch, layers):
         n = layers if cut.family == "hybrid" else 0
         assert DT.trace_counts() == ({"launch:ssd_intra": 2 * n, "launch:ssd_intra_bwd": n} if n else {})
         compare_step(card, one_step(cut, m_cpu, batch, "cpu"))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+
+
+# ------------------------------------------- the moe family (deepseek-moe-16b)
+def moe_layer(dev, seed: int):
+    """deepseek-moe-16b's MoE layer at full width (64 experts of d_ff 1408,
+    top-6, 2 shared) as f32 parameters on ``dev``, drawn on the CPU."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe as M
+
+    cfg = get_arch("deepseek-moe-16b")
+    p = M.moe_init(torch.Generator().manual_seed(seed), cfg)
+    return cfg, map_tree(lambda t: t.to(dev), p)
+
+
+def map_tree(fn, tree):
+    """``fn`` of every tensor of a nested dict."""
+    return {k: map_tree(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def test_moe_apply_on_card_matches_cpu(cuda):
+    """moe_apply at full width, f32 (TF32 off), 2 x 256 tokens at the
+    default capacity factor (pairs dropped): y within 1e-4·max|y| and aux
+    within 1e-5 of the CPU's; the card routes as the CPU did, every
+    difference a near tie (tests/moe_cases.py; expected: none)."""
+    from repro_torch.models import moe as M
+
+    from moe_cases import recorded, replayed
+
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg, p = moe_layer("cpu", seed=5)
+        x = torch.randn((2, 256, cfg.d_model), generator=torch.Generator().manual_seed(6))
+        log, stats = [], {}
+        with recorded(log):
+            y_cpu, aux_cpu = M.moe_apply(p, x, cfg)
+        assert int(M.dropped_pairs(log[0][1], cfg)) > 0
+        with replayed(log, stats):
+            y, aux = M.moe_apply(map_tree(lambda t: t.to(cuda), p), x.to(cuda), cfg)
+        print("routing agreed", stats)
+        torch.testing.assert_close(y.cpu(), y_cpu, rtol=1e-4, atol=1e-4 * float(y_cpu.abs().max()))
+        assert abs(float(aux) - float(aux_cpu)) <= 1e-5
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+
+
+def test_moe_apply_on_card_is_deterministic_and_never_syncs(cuda):
+    """Two bf16 calls of moe_apply on the card at full width (8 x 512
+    tokens, the serving prefill's shape) give the same bits: the combine
+    adds each token's outputs in a fixed order, with no atomics. Neither
+    call synchronizes with the host (``set_sync_debug_mode("error")``)."""
+    from repro_torch.models import moe as M
+
+    cfg, p = moe_layer(cuda, seed=7)
+    pb = map_tree(lambda t: t.to(torch.bfloat16), p)
+    x = torch.randn((8, 512, cfg.d_model), device=cuda, generator=torch.Generator(device=cuda).manual_seed(8))
+    x = x.to(torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = M.moe_apply(pb, x, cfg)
+        b = M.moe_apply(pb, x, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert bool(torch.isfinite(a[0].float()).all())
+
+
+def test_moe_prefill_and_decode_on_card_match_cpu(cuda):
+    """A 2-layer cut of deepseek-moe-16b at full width: f32 prefill of
+    2 x 96 tokens into 100 slots and four decode steps (TF32 off), logits
+    and K and V within 1e-3 of the CPU's, the card routed as the CPU was
+    (every difference a near tie)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+
+    from moe_cases import recorded, replayed
+    from train_cases import cut_models
+
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cut, m_dev, m_cpu = cut_models(get_arch("deepseek-moe-16b"), 2, cuda, seed=3)
+        toks = torch.as_tensor(np.random.default_rng(4).integers(0, cut.vocab, (2, 100)))
+        log, stats, outs = [], {}, []
+        for m, dev, ctx in ((m_cpu, "cpu", recorded(log)), (m_dev, cuda, replayed(log, stats))):
+            with ctx:
+                lg, cache = lm.prefill(m, cut, toks[:, :96].to(dev), 100, dtype=torch.float32)
+                got = [lg]
+                for t in range(96, 100):
+                    lg, cache = lm.decode_step(m, cut, toks[:, t:t + 1].to(dev), cache, t, dtype=torch.float32)
+                    got.append(lg)
+            outs.append(got + [cache["k"], cache["v"]])
+        print("routing agreed", stats)
+        for ours, cpu in zip(outs[1], outs[0]):
+            torch.testing.assert_close(ours.cpu().float(), cpu.float(), rtol=1e-3, atol=1e-3)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = was
 

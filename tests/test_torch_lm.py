@@ -1,16 +1,27 @@
 """The port's LMs against the JAX package's, with the JAX package's weights
 carried across by ``convert.lm_params_from_reference``: the Mamba2 LM
 (``mamba2-370m`` reduced: 2 layers, d_model 64, N 16, chunk 16), and the
-dense (qwen2-1.5b, yi-9b, yi-34b, minitron-8b) and hybrid (zamba2-2.7b)
-families at ``ArchConfig.reduced()`` (2 layers, d_model 64, 4 heads of 16;
-zamba2 one group of 2 Mamba2 layers and the shared block).
+dense (qwen2-1.5b, yi-9b, yi-34b, minitron-8b), moe (deepseek-moe-16b,
+moonshot-v1-16b-a3b: 8 experts of d_ff 32, top-2, one shared) and hybrid
+(zamba2-2.7b) families at ``ArchConfig.reduced()`` (2 layers, d_model 64,
+4 heads of 16; zamba2 one group of 2 Mamba2 layers and the shared block).
 
 Tolerances: f32 rtol = atol = 1e-4 (sums in another order); bf16 5e-2,
 because bf16 rounds at other places in XLA's fused conv sum and in eager
 torch, and the kernel path rounds the intra-chunk SSD term before adding
 the state term; the step-by-step-decode duality check 2e-2, as in
-tests/test_arch_smoke.py."""
+tests/test_arch_smoke.py. The moe family's aux loss within 1e-5 in f32
+and 1e-3 in bf16.
 
+The moe family is compared with the reference's routing recorded
+(``reference_routing``, the reference run eagerly) and replayed in the
+port (``moe_cases.replayed``): in f32 every routing decision must agree;
+in bf16 a token whose k-th and (k+1)-th router logits lie closer than the
+two packages' bf16 logits differ may go to other experts, and
+``replayed`` checks that each such difference is a near tie before it
+routes the port as the reference did."""
+
+import contextlib
 import dataclasses
 import functools
 
@@ -24,12 +35,15 @@ from repro.configs import ARCHS as JARCHS
 from repro.configs import SHAPES as JSHAPES
 from repro.configs import cells as jax_cells
 from repro.models import lm as JLM
+from repro.models import moe as JMOE
 from repro.models import ssm as JSSM
 
 from repro_torch.configs import ARCHS, SHAPES, cells, get_arch
 from repro_torch.convert import lm_params_from_reference
 from repro_torch.models import lm
 from repro_torch.models import ssm as S
+
+from moe_cases import dropped_share, replayed
 
 DT = {"f32": (jnp.float32, torch.float32, 1e-4), "bf16": (jnp.bfloat16, torch.bfloat16, 5e-2)}
 
@@ -223,8 +237,8 @@ def test_weight_casts_are_kept_and_refreshed(models):
 
 @pytest.mark.parametrize("arch", sorted(a for a, c in ARCHS.items() if c.family not in lm.MODELS))
 def test_other_families_raise(arch):
-    """moe (x2), vlm and encdec are not ported: the entry points raise
-    naming slice 6b part 3."""
+    """vlm and encdec are not ported: the entry points raise naming slice
+    6b part 3."""
     cfg = ARCHS[arch].reduced()
     with pytest.raises(NotImplementedError, match="slice 6b part 3"):
         lm.init_params(torch.Generator().manual_seed(0), cfg)
@@ -234,8 +248,9 @@ def test_other_families_raise(arch):
         lm_params_from_reference(cfg, {})
 
 
-# ------------------------------------------------ the dense and hybrid families
-FAMILY_ARCHS = ["qwen2-1.5b", "yi-9b", "yi-34b", "minitron-8b", "zamba2-2.7b"]
+# ------------------------------------------ the dense, moe and hybrid families
+FAMILY_ARCHS = ["qwen2-1.5b", "yi-9b", "yi-34b", "minitron-8b", "deepseek-moe-16b", "zamba2-2.7b"]
+MOE_AUX_TOL = {"f32": 1e-5, "bf16": 1e-3}
 
 
 @functools.cache
@@ -258,10 +273,62 @@ def family_models(arch: str):
     return jcfg, params, cfg, model, fns
 
 
+@contextlib.contextmanager
+def reference_routing(cfg, dtype: str):
+    """For a moe ``cfg``: inside the block the reference runs eagerly and
+    records each ``moe_apply`` call's router logits and experts, and the
+    port's calls, in the same order, replay them (``moe_cases.replayed``);
+    on leaving, in f32 every decision must have agreed. Yields (log,
+    stats); for the other families it changes nothing and yields (None,
+    None)."""
+    if cfg.family != "moe":
+        yield None, None
+        return
+    log, stats = [], {}
+    orig = JMOE.moe_apply
+
+    def rec(p, x, c):
+        logits = (x @ p["router"].astype(x.dtype)).astype(jnp.float32)
+        e = jax.lax.top_k(jax.nn.softmax(logits, axis=-1), c.moe_top_k)[1]
+        log.append((torch.from_numpy(np.array(logits)), torch.from_numpy(np.array(e)).long()))
+        return orig(p, x, c)
+
+    JMOE.moe_apply = rec  # the reference's lm looks moe_apply up in its module at each call
+    try:
+        with jax.disable_jit(), replayed(log, stats):
+            yield log, stats
+    finally:
+        JMOE.moe_apply = orig
+    if dtype == "f32":
+        assert stats["agreed"] == stats["decisions"], stats
+
+
+def forward_matches(arch: str, dtype: str) -> None:
+    """Training-forward logits of 2 x 40 tokens with an attention chunk of
+    16 (a ragged block split: 10 of 40); the moe family's aux (the sum of
+    its layers') too, with pairs dropped at the default capacity factor."""
+    jcfg, params, cfg, model, fns = family_models(arch)
+    jdt, tdt, tol = DT[dtype]
+    toks = tokens(cfg, (2, 40), seed=8)
+    with reference_routing(cfg, dtype) as (log, _stats):
+        lj, aj = fns["forward"](params, jcfg, jnp.asarray(toks), remat=False, chunk=16, dtype=jdt)
+        with torch.no_grad():
+            lt, aux = lm.forward(model, cfg, torch.from_numpy(toks).long(), chunk=16, dtype=tdt)
+    assert lt.shape == (2, 40, cfg.vocab) and lt.dtype == tdt
+    close(lt, lj, tol)
+    if cfg.family == "moe":
+        assert len(log) == cfg.n_layers and dropped_share(log, cfg) > 0
+        assert aux.dtype == torch.float32 and aux.dim() == 0
+        np.testing.assert_allclose(float(aux), float(aj), rtol=MOE_AUX_TOL[dtype], atol=MOE_AUX_TOL[dtype])
+    else:
+        assert aux == 0.0
+
+
 def test_family_models_match_reference_layout():
     """Every family's state_dict names map one to one onto the JAX
     package's leaves: qwen2 tied with biases, yi and minitron untied,
-    minitron's non-gated MLP, zamba2's (groups, attn_every) layers and its
+    minitron's non-gated MLP, deepseek's experts, router and shared expert
+    under ``layers.<i>.moe``, zamba2's (groups, attn_every) layers and its
     shared block."""
     for arch in FAMILY_ARCHS:
         jcfg, params, cfg, model, _ = family_models(arch)
@@ -274,21 +341,29 @@ def test_family_models_match_reference_layout():
     assert isinstance(zmodel, lm.HybridLM) and len(zmodel.layers) == 1 and len(zmodel.layers[0]) == 2
     assert "layers.0.1.ssm.in_x" in zmodel.state_dict() and "shared_attn.mlp.gate" in zmodel.state_dict()
     assert isinstance(family_models("qwen2-1.5b")[3], lm.DenseLM)
+    _, mparams, mcfg, mmodel, _ = family_models("deepseek-moe-16b")
+    msd = mmodel.state_dict()
+    assert isinstance(mmodel, lm.MoELM) and isinstance(mmodel.layers[1], lm.MoEBlock)
+    for key in ("experts.up", "experts.gate", "experts.down", "router", "shared.up", "shared.gate", "shared.down"):
+        leaf = functools.reduce(lambda d, k: d[k], key.split("."), mparams["layers"]["moe"])
+        assert tuple(msd[f"layers.1.moe.{key}"].shape) == tuple(leaf.shape[1:]), key
+    assert tuple(msd["layers.0.moe.experts.up"].shape) == (mcfg.n_experts, mcfg.d_model, mcfg.expert_d_ff)
 
 
 @pytest.mark.parametrize("dtype", sorted(DT))
 @pytest.mark.parametrize("arch", FAMILY_ARCHS)
 def test_family_forward_matches_reference(arch, dtype):
-    """Training-forward logits of 2 x 40 tokens with an attention chunk of
-    16 (a ragged block split: 10 of 40)."""
-    jcfg, params, cfg, model, fns = family_models(arch)
-    jdt, tdt, tol = DT[dtype]
-    toks = tokens(cfg, (2, 40), seed=8)
-    lj, _ = fns["forward"](params, jcfg, jnp.asarray(toks), remat=False, chunk=16, dtype=jdt)
-    with torch.no_grad():
-        lt, aux = lm.forward(model, cfg, torch.from_numpy(toks).long(), chunk=16, dtype=tdt)
-    assert aux == 0.0 and lt.shape == (2, 40, cfg.vocab) and lt.dtype == tdt
-    close(lt, lj, tol)
+    """``forward_matches`` for every family of the port."""
+    forward_matches(arch, dtype)
+
+
+def test_moonshot_forward_matches_reference():
+    """moonshot-v1-16b-a3b: its reduced cut differs from deepseek's only in
+    RoPE's theta (and the vocab of the full model); ``forward_matches`` in
+    f32."""
+    assert dataclasses.replace(get_arch("moonshot-v1-16b-a3b").reduced(), rope_theta=1.0, name="") == \
+        dataclasses.replace(get_arch("deepseek-moe-16b").reduced(), rope_theta=1.0, name="")
+    forward_matches("moonshot-v1-16b-a3b", "f32")
 
 
 @pytest.mark.parametrize("dtype", sorted(DT))
@@ -300,9 +375,6 @@ def test_family_prefill_and_decode_match_reference(arch, dtype):
     jcfg, params, cfg, model, fns = family_models(arch)
     jdt, tdt, tol = DT[dtype]
     toks = tokens(cfg, (2, 40), seed=5)
-    lj, cj = fns["prefill"](params, jcfg, jnp.asarray(toks), 48, chunk=16, dtype=jdt)
-    lt, ct = lm.prefill(model, cfg, torch.from_numpy(toks).long(), 48, chunk=16, dtype=tdt)
-    assert lt.shape == (2, 1, cfg.vocab) and lt.dtype == tdt
 
     def same_cache(ct, cj, what):
         assert sorted(ct) == sorted(cj), what
@@ -313,15 +385,19 @@ def test_family_prefill_and_decode_match_reference(arch, dtype):
                 assert tuple(ct[key].shape) == tuple(cj[key].shape) and ct[key].dtype == tdt, key
                 close(ct[key], cj[key], tol)
 
-    close(lt, lj, tol)
-    same_cache(ct, cj, "prefill")
-    nxt = tokens(cfg, (2, 4), seed=6)
-    for t in range(4):
-        lj, cj = fns["decode"](params, jcfg, jnp.asarray(nxt[:, t : t + 1]), cj, jnp.int32(40 + t), dtype=jdt)
-        lt, ct2 = lm.decode_step(model, cfg, torch.from_numpy(nxt[:, t : t + 1]).long(), ct, 40 + t, dtype=tdt)
-        assert ct2 is ct
+    with reference_routing(cfg, dtype):
+        lj, cj = fns["prefill"](params, jcfg, jnp.asarray(toks), 48, chunk=16, dtype=jdt)
+        lt, ct = lm.prefill(model, cfg, torch.from_numpy(toks).long(), 48, chunk=16, dtype=tdt)
+        assert lt.shape == (2, 1, cfg.vocab) and lt.dtype == tdt
         close(lt, lj, tol)
-        same_cache(ct, cj, f"decode step {t}")
+        same_cache(ct, cj, "prefill")
+        nxt = tokens(cfg, (2, 4), seed=6)
+        for t in range(4):
+            lj, cj = fns["decode"](params, jcfg, jnp.asarray(nxt[:, t : t + 1]), cj, jnp.int32(40 + t), dtype=jdt)
+            lt, ct2 = lm.decode_step(model, cfg, torch.from_numpy(nxt[:, t : t + 1]).long(), ct, 40 + t, dtype=tdt)
+            assert ct2 is ct
+            close(lt, lj, tol)
+            same_cache(ct, cj, f"decode step {t}")
 
 
 @pytest.mark.parametrize("arch", FAMILY_ARCHS)
@@ -329,8 +405,14 @@ def test_family_decode_matches_forward(arch):
     """The duality, port only, f32: step-by-step decode from an empty cache
     gives the training forward's logits (chunk 8: 3 KV blocks of 24
     tokens), and a chunked prefill the cache the steps built, within 2e-2
-    as tests/test_arch_smoke.py holds the reference."""
+    as tests/test_arch_smoke.py holds the reference. The moe family runs
+    at ``capacity_factor = n_experts / moe_top_k``, whose capacity (>= S)
+    drops no pair: at the default factor a prefill of S tokens may drop
+    pairs that one-token decode steps (capacity 8) keep, so the two differ
+    by the reference's own contract."""
     _, _, cfg, model, _ = family_models(arch)
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.moe_top_k)
     T = 24
     toks = torch.from_numpy(tokens(cfg, (2, T), seed=9)).long()
     with torch.no_grad():
@@ -364,7 +446,7 @@ def test_family_init_cache_matches_reference(arch):
         assert all(v.dtype == torch.float32 for v in ours["ssm"].values())
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "deepseek-moe-16b", "zamba2-2.7b"])
 def test_family_decode_step_writes_the_cache_in_place(arch):
     """decode_step writes the new K and V at cur_index (and the hybrid's
     new states) into the cache it is given and returns that cache; no slot

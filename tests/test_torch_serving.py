@@ -375,14 +375,14 @@ def test_generate_through_both_servers_matches_reference(arch, monkeypatch):
 
 
 def test_launch_serve_runs_on_the_cpu_and_names_slice_6b(capsys):
-    """The launcher serves mamba2-370m, qwen2-1.5b (dense) and zamba2-2.7b
-    (hybrid) reduced on the CPU; a moe configuration raises, naming slice
-    6b part 3."""
+    """The launcher serves mamba2-370m, qwen2-1.5b (dense),
+    deepseek-moe-16b (moe) and zamba2-2.7b (hybrid) reduced on the CPU; an
+    encdec configuration raises, naming slice 6b part 3."""
     from repro_torch.launch import serve
 
-    for arch in ("mamba2-370m", "qwen2-1.5b", "zamba2-2.7b"):
+    for arch in ("mamba2-370m", "qwen2-1.5b", "deepseek-moe-16b", "zamba2-2.7b"):
         serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests", "2", "--max-new", "4"])
         out = capsys.readouterr().out
         assert "served 4 mixed requests (2 generate / 8 tokens, 2 reads)" in out and "req/s on cpu" in out, arch
     with pytest.raises(NotImplementedError, match="slice 6b part 3"):
-        serve.main(["--arch", "deepseek-moe-16b", "--smoke", "--device", "cpu"])
+        serve.main(["--arch", "whisper-small", "--smoke", "--device", "cpu"])

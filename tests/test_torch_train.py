@@ -2,9 +2,9 @@
 AdamW and its schedule, gradient compression, the gradients of ``ops.ssd``
 (B6 and the recurrence across chunks) against ``jax.grad`` of
 ``ssd_chunked``, B6's written-out backward against autograd, the train step
-of a reduced mamba2-370m, qwen2-1.5b (dense) and zamba2-2.7b (hybrid) (JAX's
-weights through ``convert``), the trainer's resume, and checkpoints that
-either package restores.
+of a reduced mamba2-370m, qwen2-1.5b (dense), deepseek-moe-16b (moe) and
+zamba2-2.7b (hybrid) (JAX's weights through ``convert``), the trainer's
+resume, and checkpoints that either package restores.
 
 Inputs are made from seeds with numpy and handed to both packages. Each
 test states its tolerance and why."""
@@ -47,6 +47,7 @@ from repro_torch.training.trainer import StragglerMonitor, Trainer, TrainerConfi
 from train_cases import compare_step
 
 ARCH = "mamba2-370m"
+MOE = "deepseek-moe-16b"
 ADAMW = dict(lr=1e-3, total_steps=8, warmup_steps=2)
 
 
@@ -418,6 +419,50 @@ def test_family_train_step_matches_reference_bf16(arch):
     bf16_steps_match(arch)
 
 
+@pytest.mark.parametrize("remat,policy", [(False, "nothing"), (True, "nothing"), (True, "dots")],
+                         ids=["off", "nothing", "dots"])
+def test_moe_train_step_matches_reference_f32(remat, policy, monkeypatch):
+    """One f32 train step of the reduced deepseek-moe-16b (2 layers, 8
+    experts of d_ff 32, top-2, one shared; pairs dropped at the default
+    capacity factor), the aux loss in the objective at aux_coeff 0.01, with
+    remat off, ``nothing`` and ``dots`` on both sides: the loss, and every
+    leaf of the state within tests/train_cases.py's AdamW-aware bounds.
+    ``aux`` within 1e-5."""
+    jms, tms, ours, theirs = run_both(start_of(MOE), 1, dtype="f32", monkeypatch=monkeypatch, arch=MOE,
+                                      remat=remat, remat_policy=policy)
+    np.testing.assert_allclose(tms[0]["aux"], jms[0]["aux"], rtol=1e-5, atol=1e-5)
+    compare_step((tms[0], ours), (jms[0], theirs))
+
+
+def test_moe_aux_reaches_the_loss_with_its_gradient(monkeypatch):
+    """The moe family's aux (the sum of its layers' load-balance losses)
+    enters the loss at aux_coeff with its gradient: in f32, the router's
+    gradient moves with aux_coeff, by aux_coeff times the gradient of aux
+    alone (within 1e-5 of the gradient's largest value: the two runs' loss
+    gradients cancel in another order); ``metrics["aux"]`` is a detached
+    f32 tensor."""
+    monkeypatch.setattr(lm, "forward", functools.partial(lm.forward, dtype=torch.float32))
+    _jcfg, params, opt = start_of(MOE)
+    cfg = get_arch(MOE).reduced()
+    b = {k: torch.from_numpy(v) for k, v in batches(cfg, 1)[0].items()}
+    model, _ = port_state(cfg, params, opt)
+    grads = {c: TS._grads(model, cfg, b, TS.TrainOptions(remat=False, aux_coeff=c)) for c in (0.0, 1.0)}
+    _loss, m, _g = grads[1.0]
+    assert isinstance(m["aux"], torch.Tensor) and not m["aux"].requires_grad and m["aux"].dtype == torch.float32
+    assert float(m["aux"]) > 0
+    _l, aux = lm.forward(model, cfg, b["tokens"], remat=False)
+    aux_grads = dict(zip(dict(model.named_parameters()), torch.autograd.grad(aux, list(model.parameters()),
+                                                                              allow_unused=True)))
+    for i in range(cfg.n_layers):
+        name = f"layers.{i}.moe.router"
+        moved = grads[1.0][2][name] - grads[0.0][2][name]
+        assert float(moved.abs().max()) > 0, name
+        top = float(grads[1.0][2][name].abs().max())
+        np.testing.assert_allclose(moved.numpy(), aux_grads[name].numpy(), rtol=0, atol=1e-5 * top)
+    last = f"layers.{cfg.n_layers - 1}.moe"  # its aux depends on its input and router, not on its experts
+    assert aux_grads[f"{last}.experts.up"] is None and aux_grads[f"{last}.router"] is not None
+
+
 def bf16_steps_match(arch):
     """Two steps of both packages' default bf16 train step: the loss within
     2e-2 relative, grad_norm within 5e-2."""
@@ -500,11 +545,12 @@ def test_remat_gives_the_same_gradients(start, policy):
 
 
 @pytest.mark.parametrize("remat", [False, True], ids=["off", "on"])
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "deepseek-moe-16b", "zamba2-2.7b"])
 def test_family_remat_gives_the_same_gradients(arch, remat, monkeypatch):
-    """Remat as the reference places it: every dense block is checkpointed,
-    so the attention's forward (``_flash_fwd_impl``) runs twice a layer a
-    step and its backward once; the hybrid checkpoints each Mamba2 block
+    """Remat as the reference places it: every dense and moe block is
+    checkpointed, so the attention's forward (``_flash_fwd_impl``) runs
+    twice a layer a step and its backward once (a moe block's aux leaves
+    the checkpoint beside x); the hybrid checkpoints each Mamba2 block
     (B6 forward twice a layer, backward once) and not the shared block
     (its attention forward runs once a group). The gradients equal the
     no-remat ones within 1e-6·max."""
@@ -525,7 +571,7 @@ def test_family_remat_gives_the_same_gradients(arch, remat, monkeypatch):
     monkeypatch.setattr(L, "_flash_bwd", counted(L._flash_bwd, "bwd"))
     cuda_lib.reset_counts()
     _loss, _m, grads = TS._grads(model, cfg, b, TS.TrainOptions(remat=remat, chunk=8))
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         assert runs == {"fwd": (2 if remat else 1) * cfg.n_layers, "bwd": cfg.n_layers}
         assert cuda_lib.counts() == {}
     else:
@@ -542,7 +588,7 @@ def test_stacked_maps_every_parameter_onto_its_jax_leaf():
     layers' (one index, or the hybrid's two) dropped, ``shared_attn.*`` and
     the embedding, norm and head as they are; int16_ef keeps one scale a
     leaf."""
-    for arch in (ARCH, "qwen2-1.5b", "minitron-8b", "zamba2-2.7b"):
+    for arch in (ARCH, "qwen2-1.5b", "minitron-8b", MOE, "zamba2-2.7b"):
         jcfg = JARCHS[arch].reduced()
         leaves = {".".join(str(k.key) for k in path)
                   for path, _ in jax.tree_util.tree_flatten_with_path(JLM.init_params(jax.random.PRNGKey(0), jcfg))[0]}
@@ -696,10 +742,11 @@ def test_checkpoints_cross_between_packages(tmp_path):
     checkpoints_cross(ARCH, tmp_path)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "yi-9b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "yi-9b", "deepseek-moe-16b", "zamba2-2.7b"])
 def test_family_checkpoints_cross_between_packages(arch, tmp_path):
-    """``checkpoints_cross`` for the dense (tied and untied) and hybrid
-    (nested layers, shared block) layouts."""
+    """``checkpoints_cross`` for the dense (tied and untied), moe (stacked
+    experts, router and shared expert) and hybrid (nested layers, shared
+    block) layouts."""
     checkpoints_cross(arch, tmp_path)
 
 
@@ -737,11 +784,11 @@ def checkpoints_cross(arch, tmp_path):
 
 
 # --------------------------------------------------------- entry points
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "deepseek-moe-16b", "zamba2-2.7b"])
 def test_launch_train_trains_dense_and_hybrid_on_the_cpu(arch, tmp_path, capsys):
-    """``python -m repro_torch.launch.train --arch <dense or hybrid> --smoke
-    --device cpu`` trains the reduced model on SAGe tokens and writes its
-    final checkpoint in the JAX package's layout."""
+    """``python -m repro_torch.launch.train --arch <dense, moe or hybrid>
+    --smoke --device cpu`` trains the reduced model on SAGe tokens and
+    writes its final checkpoint in the JAX package's layout."""
     args = ["--arch", arch, "--smoke", "--device", "cpu", "--steps", "2", "--batch", "2", "--seq", "32",
             "--ckpt-dir", str(tmp_path)]
     handlers = {sig: signal.getsignal(sig) for sig in (signal.SIGTERM, signal.SIGINT)}
@@ -778,16 +825,16 @@ def test_launch_train_smoke_on_the_cpu(tmp_path, capsys):
 
 
 def test_other_families_raise_naming_slice_6b():
-    """moe, encdec and vlm are not ported: the train path raises naming
-    slice 6b part 3, as does loss_fn on their batches' extra inputs."""
-    for name in ("deepseek-moe-16b", "moonshot-v1-16b-a3b", "whisper-small", "qwen2-vl-72b"):
+    """encdec and vlm are not ported: the train path raises naming slice
+    6b part 3, as does loss_fn on their batches' extra inputs."""
+    for name in ("whisper-small", "qwen2-vl-72b"):
         cfg = get_arch(name).reduced()
         with pytest.raises(NotImplementedError, match="slice 6b part 3"):
             TS.init_train_state(torch.Generator().manual_seed(0), cfg, device="cpu")
         with pytest.raises(NotImplementedError, match="slice 6b part 3"):
             train_state_from_reference(cfg, {}, {"step": 0})
     with pytest.raises(NotImplementedError, match="slice 6b part 3"):
-        launch_train.main(["--arch", "deepseek-moe-16b", "--device", "cpu"])
+        launch_train.main(["--arch", "whisper-small", "--device", "cpu"])
     cfg = get_arch("qwen2-1.5b").reduced()
     model = lm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="slice 6b part 3"):
