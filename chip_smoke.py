@@ -3,9 +3,10 @@ SAGe_Read, SAGe_ISP (streams, the exact-match filter, the store-backed
 mapper), the LM token pipeline, mamba2-370m serving store-derived prompts,
 the multi-tenant SageServer frontend, the self-healing store (parity
 reconstruction, scrub, repair), mamba2-370m trained on SAGe k-mer tokens
-with checkpoints, and qwen2-1.5b (dense), zamba2-2.7b (hybrid) and
-deepseek-moe-16b (moe, cut in depth) served and trained at full width,
-through the hand-written CUDA kernels,
+with checkpoints, and qwen2-1.5b (dense), zamba2-2.7b (hybrid),
+deepseek-moe-16b (moe, cut in depth), qwen2-vl-72b (vlm, cut in depth) and
+whisper-small (encdec) served and trained at full width, through the
+hand-written CUDA kernels,
 checked against the sequential numpy encoder and decoder, the plain torch
 versions and the CPU.
 
@@ -151,6 +152,21 @@ Phases, each printing one JSON line:
            prints the share of decisions that agreed; its duality runs at
            capacity_factor = 64 / 6, which drops no pair; the aux loss of
            each training step
+  vlm      qwen2-vl-72b at full width (d_model 8192, 64 / 8 heads of 128,
+           d_ff 29568, vocab 152064, untied, QKV biases, M-RoPE sections
+           (16, 24, 24)), cut in depth (72.7 B parameters do not fit): 8 of
+           80 layers served with 64 seeded patches (an 8 x 8 grid, bf16)
+           before each prompt, 1 trained on 128 seeded patches and 384
+           pipeline tokens a row; the moe phase's runs (block 26720, tiles
+           3402-3403), the cut (1 layer: 16 patches + 128 tokens) against the
+           CPU, the duality with one patch, the cut's loss and gradients
+           (no AdamW: two f32 states of the cut do not fit the host)
+  encdec   whisper-small whole (12 encoder + 12 decoder layers, d_model 768,
+           12 heads of 64, GELU MLP, learned positions, LayerNorm) on 512
+           seeded frames a row (block 26752, tiles 3502-3503): the same
+           runs, its cut (2 + 2 layers, 96 frames for 128 tokens: the full
+           cross attention) against the CPU, the duality with as many
+           frames as cache slots, the attention also bidirectional
 Then the kernel table as one JSON line (B1's, B2's, B3's, B5's and B6
 backward's rows with their launch `plan`, B1's and B3's with the launch
 floor), the card's name and power limit,
@@ -221,7 +237,8 @@ try:
 
     sys.path.insert(0, str(ROOT / "tests"))
     from dp_cases import CARD_DP_CASES, scan_inputs  # the DP's card test cases (numpy + the port)
-    from train_cases import compare_step, cut_batch, cut_models, one_step  # a train step, card vs CPU
+    from train_cases import compare_grads, compare_step, cut_batch, cut_models, grads_of, one_step  # card vs CPU
+    from family_cases import family_inputs, prefix_duality  # the vlm / encdec inputs and duality
     from moe_cases import dropped_share, recorded, replayed  # the MoE router's decisions, card vs CPU
 except ImportError as e:  # run outside a checkout of the repository
     print(f"chip_smoke: cannot import the port ({e}); run from the repository root", file=sys.stderr)
@@ -297,7 +314,20 @@ TRAIN = dict(first_tile=3072, tiles=2, batch=8, seq=512, steps=8, ckpt_at=4, see
 # of 6 Mamba2 layers and the shared block). deepseek-moe-16b (16.9 B
 # parameters, 67.5 GB in f32) does not fit the card whole: it serves 16 of
 # its 28 layers (f32 weights and their bf16 copies, ~58 GB) and trains 4
-# (2.77 B parameters at 16 bytes each for parameters, gradients, m and v)
+# (2.77 B parameters at 16 bytes each for parameters, gradients, m and v).
+# qwen2-vl-72b (vlm, 72.7 B parameters) serves 8 of its 80 layers (f32
+# weights and their bf16 copies, ~55 GB) with 64 seeded patches (an 8 x 8
+# grid: generate fits at most max_new + 1, ROADMAP C-4) before each prompt,
+# and trains 1 layer (3.37 B parameters) on 128 seeded patches and 384
+# pipeline tokens a row (the JAX package's specs: int(512 x img_frac 0.25));
+# its card-vs-CPU train step holds the loss and gradients only (two f32
+# states with AdamW's moments of a 1-layer cut, ~54 GB each, do not fit
+# the card machine's host). whisper-small (encdec) runs whole on 512
+# seeded frames a row (T = S: the prefill's cross attention takes the
+# flash path), its CPU cut on 96 frames for 128 tokens (the full path).
+# Their train tiles are 3402-3403 and 3502-3503: write_v2 cannot lay out a
+# container of tiles 3400-3401 or 3500-3501 (its header loop oscillates,
+# in both packages: ROADMAP C-5)
 FAMILY = {
     "dense": dict(arch="qwen2-1.5b", seed=11, prompt_block=26624, first_tile=3100, steps=4, cut_layers=4,
                   train_cut_layers=2),
@@ -305,6 +335,11 @@ FAMILY = {
                    train_cut_layers=6),
     "moe": dict(arch="deepseek-moe-16b", seed=13, prompt_block=26688, first_tile=3300, steps=3, cut_layers=2,
                 train_cut_layers=1, serve_layers=16, train_layers=4),
+    "vlm": dict(arch="qwen2-vl-72b", seed=14, prompt_block=26720, first_tile=3402, steps=3, cut_layers=1,
+                train_cut_layers=1, serve_layers=8, train_layers=1, extra=64, train_extra=128,
+                cut_tokens=128, cut_extra=16, duality_extra=1, grads_only=True),
+    "encdec": dict(arch="whisper-small", seed=15, prompt_block=26752, first_tile=3502, steps=4, cut_layers=2,
+                   train_cut_layers=2, extra=512, train_extra=512, cut_tokens=128, cut_extra=96),
 }
 FAMILY_RUN = dict(prompts=8, tiles=2, batch=8, seq=512, lr=2e-3, warmup=2, cpu_prompts=2, duality_tokens=160,
                   duality_chunk=64, prefill_runs=2, decode_steps=8, profile_steps=4, cut_batch=2, cut_seq=128,
@@ -1405,83 +1440,99 @@ def train_phase(dev, cfg, src: SageFile, oracle: "Oracle") -> int:
     return path_n["ssd_intra_bwd"]
 
 
-def sdpa(q, k, v):
-    """One ``F.scaled_dot_product_attention`` call (causal, GQA) on (B, S,
-    H, Dh) tensors: the library's attention, timed as a yardstick only."""
+def sdpa(q, k, v, causal: bool = True):
+    """One ``F.scaled_dot_product_attention`` call (GQA; causal unless
+    asked otherwise) on (B, S, H, Dh) tensors: the library's attention,
+    timed as a yardstick only."""
     o = torch.nn.functional.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True, enable_gqa=True)
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal, enable_gqa=True)
     return o.transpose(1, 2)
 
 
-def attention_yardstick(cfg, dev, seed: int) -> dict:
+def attention_yardstick(cfg, dev, seed: int, causal: bool = True) -> dict:
     """The port's attention (``causal_flash``: plain torch ops, f32 scores)
-    at the train shape (8 x 512 tokens, bf16 q, k, v, causal, GQA, one KV
-    block as TrainOptions' chunk 1024 gives) beside one
-    ``scaled_dot_product_attention`` call on the same tensors: device ms of
-    the forward and of forward + backward, the outputs' max abs difference
-    (bf16 tolerance 5e-2), and the bound: q, k, v (and dout) read once, the
-    outputs written once, over HBM_BYTES_PER_S; the causal products (QKᵀ
-    and PV forward, five more backward, each S(S+1)/2·Dh multiply-adds a
-    head) over BF16_OPS_PER_S."""
+    at the train shape (8 x 512 tokens, bf16 q, k, v, GQA, one KV block as
+    TrainOptions' chunk 1024 gives; causal, or bidirectional as the encdec
+    family's encoder runs it) beside one ``scaled_dot_product_attention``
+    call on the same tensors: device ms of the forward and of forward +
+    backward, the outputs' max abs difference (bf16 tolerance 5e-2), and
+    the bound: q, k, v (and dout) read once, the outputs written once, over
+    HBM_BYTES_PER_S; the products (QKᵀ and PV forward, five more backward,
+    each S(S+1)/2·Dh multiply-adds a head when causal, S²·Dh when not) over
+    BF16_OPS_PER_S."""
     run = FAMILY_RUN
     B, S, H, KV, Dh = run["batch"], run["seq"], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v, dout = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
                      for shape in ((B, S, H, Dh), (B, S, KV, Dh), (B, S, KV, Dh), (B, S, H, Dh)))
-    out, lib = LAYERS.causal_flash(q, k, v, 1024), sdpa(q, k, v)
+
+    def flash(a, b, c):
+        return LAYERS.causal_flash(a, b, c, 1024, not causal)
+
+    out, lib = flash(q, k, v), sdpa(q, k, v, causal)
     err = max_abs_err(out, lib)
     assert bool(torch.allclose(out.float(), lib.float(), rtol=5e-2, atol=5e-2)), err
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
 
     def flash_fb():
-        return torch.autograd.grad(LAYERS.causal_flash(qg, kg, vg, 1024), (qg, kg, vg), dout)
+        return torch.autograd.grad(flash(qg, kg, vg), (qg, kg, vg), dout)
 
     def sdpa_fb():
-        return torch.autograd.grad(sdpa(qg, kg, vg), (qg, kg, vg), dout)
+        return torch.autograd.grad(sdpa(qg, kg, vg, causal), (qg, kg, vg), dout)
 
     io = B * S * (H + 2 * KV) * Dh * 2 + B * S * H * Dh * 2
-    macs = B * H * Dh * S * (S + 1) // 2  # one causal product
+    macs = B * H * Dh * (S * (S + 1) // 2 if causal else S * S)  # one product
     it = run["attn_iters"]
-    fwd_ms, fb_ms = cuda_ms(lambda: LAYERS.causal_flash(q, k, v, 1024), it)[0], cuda_ms(flash_fb, it)[0]
+    fwd_ms, fb_ms = cuda_ms(lambda: flash(q, k, v), it)[0], cuda_ms(flash_fb, it)[0]
     b_f, by_f = bound(io, 2 * 2 * macs, BF16_OPS_PER_S)
     b_fb, by_fb = bound(2 * io, 7 * 2 * macs, BF16_OPS_PER_S)
-    return {"shape": [B, S, H, KV, Dh], "max_abs_err_vs_sdpa": err,
-            "fwd": {"ms": fwd_ms, "sdpa_ms": cuda_ms(lambda: sdpa(q, k, v), it)[0], "bound_ms": b_f, "bound_by": by_f},
+    return {"shape": [B, S, H, KV, Dh], "causal": causal, "max_abs_err_vs_sdpa": err,
+            "fwd": {"ms": fwd_ms, "sdpa_ms": cuda_ms(lambda: sdpa(q, k, v, causal), it)[0], "bound_ms": b_f,
+                    "bound_by": by_f},
             "fwd_bwd": {"ms": fb_ms, "sdpa_ms": cuda_ms(sdpa_fb, it)[0], "bound_ms": b_fb, "bound_by": by_fb}}
 
 
 def family_phase(dev, kind: str, src: SageFile, oracle: "Oracle") -> dict:
-    """A dense (qwen2-1.5b), hybrid (zamba2-2.7b) or moe (deepseek-moe-16b)
-    LM at full width on the card, weights from a seeded generator (the moe
-    model cut in depth: ``serve_layers`` served, ``train_layers`` trained):
+    """A dense (qwen2-1.5b), hybrid (zamba2-2.7b), moe (deepseek-moe-16b),
+    vlm (qwen2-vl-72b) or encdec (whisper-small) LM at full width on the
+    card, weights from a seeded generator (the moe and vlm models cut in
+    depth: ``serve_layers`` served, ``train_layers`` trained); the vlm
+    family's patch embeddings and the encdec family's frames are seeded
+    draws (``extra`` a prompt in serving, ``train_extra`` a row in
+    training):
 
     (a) serving: 8 prompts from an Illumina block through a fused kmer
         session of a store of its own (B1, B5), two greedy generate calls
         (the hybrid: B6 once a Mamba2 layer a step), held against the CPU's
         prompts and each other; TTFT, decode ms a step, tokens/s, peak
         memory, profiles of a prefill and 4 decode steps with the device
-        time inside the attention (and inside ``moe_apply``); the moe
-        family's share of (token, choice) pairs its prefill dropped;
+        time inside the attention (and inside ``moe_apply``, the cross
+        attention, M-RoPE); the moe family's share of (token, choice) pairs
+        its prefill dropped;
     (b) a depth cut against the CPU: f32 and bf16 prefill logits and the
-        cache of 2 prompts of 512 tokens (the moe family's card routed as
-        the CPU was, every difference a near tie, and the share of
+        cache of 2 prompts of 512 tokens (the vlm and encdec: 128 tokens
+        after 16 patches, or with 96 frames) (the moe family's card routed
+        as the CPU was, every difference a near tie, and the share of
         decisions that agreed);
     (c) the duality on the cut (f32): step-by-step decode against the
         chunked forward, and its cache against a chunked prefill's (the
         moe family at capacity_factor = n_experts / top_k, which drops no
         pair: a prefill at the default factor may drop pairs that one-token
-        decode steps keep);
+        decode steps keep; the vlm with one patch and the encdec with as
+        many frames as cache slots, where the reference's own decode agrees
+        with its forward: ``family_cases.prefix_duality``);
     (d) training through the Trainer (no checkpoint) on a fused
-        SageTokenPipeline: every batch against refdec's k-mer stream, the
-        loss falls, launch counts from 0 (the hybrid: B6 forward twice a
-        Mamba2 layer a step, backward once); step ms, tokens/s, peak
-        memory, a profiled step (busy share, top device ops, attention,
-        ``moe_apply``); the moe family's aux loss each step;
+        SageTokenPipeline (the vlm's rows 384 tokens after 128 patches):
+        every batch against refdec's k-mer stream, the loss falls, launch
+        counts from 0 (the hybrid: B6 forward twice a Mamba2 layer a step,
+        backward once); step ms, tokens/s, peak memory, a profiled step
+        (busy share, top device ops, attention, ``moe_apply``); the moe
+        family's aux loss each step;
     (e) a depth cut's train step (f32) against the CPU within
         tests/train_cases.py's bounds (the moe family's card routed as the
-        CPU was);
+        CPU was; the vlm's loss and gradients, with no AdamW);
     (f) the attention beside scaled_dot_product_attention at the train
-        shape.
+        shape (the encdec's bidirectional encoder too).
     Returns the launches of the serving and training paths."""
     spec, run = FAMILY[kind], FAMILY_RUN
     t_phase = time.perf_counter()
@@ -1494,9 +1545,16 @@ def family_phase(dev, kind: str, src: SageFile, oracle: "Oracle") -> dict:
     whole = get_arch(spec["arch"])
     cfg = dataclasses.replace(whole, n_layers=spec.get("serve_layers", whole.n_layers))
     moe = cfg.family == "moe"
+    key_x = {"vlm": "patch_embeds", "encdec": "frames"}.get(cfg.family)  # the model's input beside the tokens
     n_ssm = cfg.n_layers if cfg.family == "hybrid" else 0
     focus = "ssd" if n_ssm else ""
     attn = [(LAYERS, "attention_train"), (LAYERS, "_flash_fwd_impl")]
+    attn_dec = [(LAYERS, "attention_decode")]
+    if cfg.family == "encdec":  # the cross attention, and within it the full path (T != S)
+        attn += [(LAYERS, "cross_attention"), (LAYERS, "_full_attn")]
+        attn_dec += [(LAYERS, "cached_cross")]
+    if cfg.mrope:
+        attn += [(LAYERS, "mrope_apply")]
     # moe_apply and its parts: the router, the dispatch and within it the expert products
     experts = [(MOE, "moe_apply"), (MOE, "route"), (MOE, "_dispatch_ffn"), (MOE, "_expert_ffn")] if moe else []
 
@@ -1513,6 +1571,8 @@ def family_phase(dev, kind: str, src: SageFile, oracle: "Oracle") -> dict:
     store.register("illumina", str(WORK / "illumina.sage2"))
     feed = dict(vocab=cfg.vocab, n_prompts=run["prompts"], max_prompt=sc.max_prompt, kmer_k=k,
                 block_range=(spec["prompt_block"], spec["prompt_block"] + 1))
+    extra = family_inputs(cfg, run["prompts"], spec.get("extra", 0), spec["seed"], dev, torch.bfloat16)
+    frames = next(iter(extra.values()), None)  # generate's frames: the patches or the encoder's input
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_trace_counts()
@@ -1524,7 +1584,7 @@ def family_phase(dev, kind: str, src: SageFile, oracle: "Oracle") -> dict:
         before = trace_counts().get("launch:ssd_intra", 0)
         torch.cuda.synchronize()
         g0 = time.perf_counter()
-        gens.append(np.stack(engine.generate(prompts)))
+        gens.append(np.stack(engine.generate(prompts, frames)))
         gen_s.append(time.perf_counter() - g0)
         per_gen.append(trace_counts().get("launch:ssd_intra", 0) - before)
     counts = trace_counts()
@@ -1545,14 +1605,15 @@ def family_phase(dev, kind: str, src: SageFile, oracle: "Oracle") -> dict:
     assert np.array_equal(gens[0], gens[1]), "a second greedy generate gave other tokens"
 
     steps = run["decode_steps"]
-    max_len = sc.max_prompt + steps + run["profile_steps"] + 1  # room for the profiled steps after the timed ones
+    # room for the profiled steps after the timed ones; the vlm prefill holds its patches too (generate's cache)
+    max_len = sc.max_prompt + sc.max_new + 1 if extra else sc.max_prompt + steps + run["profile_steps"] + 1
     toks = torch.as_tensor(slot_tokens(prompts, sc.max_prompt), device=dev)
-    logits, cache = lm.prefill(model, cfg, toks, max_len)
+    logits, cache = lm.prefill(model, cfg, toks, max_len, **extra)
     ttft = []
     for _ in range(run["prefill_runs"]):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = lm.prefill(model, cfg, toks, max_len)
+        logits, cache = lm.prefill(model, cfg, toks, max_len, **extra)
         torch.cuda.synchronize()
         ttft.append((time.perf_counter() - t0) * 1e3)
     assert bool(torch.isfinite(logits.float()).all()), "prefill logits not finite"
@@ -1575,36 +1636,39 @@ def family_phase(dev, kind: str, src: SageFile, oracle: "Oracle") -> dict:
         return tok
 
     serve_prof = {
-        "prefill": profile_window(lambda _i: lm.prefill(model, cfg, toks, max_len), focus=focus,
+        "prefill": profile_window(lambda _i: lm.prefill(model, cfg, toks, max_len, **extra), focus=focus,
                                   ranges=attn + experts),
         f"decode_{run['profile_steps']}_steps": profile_window(decode_window, focus=focus,
-                                                               ranges=[(LAYERS, "attention_decode")] + experts)}
+                                                               ranges=attn_dec + experts)}
     routed = []
     if moe:  # the pairs the serving prefill dropped past capacity, every layer
         with recorded(routed):
             lm.prefill(model, cfg, toks, max_len)
     dropped = dropped_share(routed, cfg) if moe else None
-    del model, engine, cache, logits, lg, routed
+    del model, engine, cache, logits, lg, routed, extra, frames
     torch.cuda.empty_cache()
     part("serve")
 
     # (b) the depth cut against the CPU, same weights
-    cut = dataclasses.replace(cfg, n_layers=spec["cut_layers"])
+    cut = dataclasses.replace(cfg, n_layers=spec["cut_layers"],
+                              **({"n_enc_layers": spec["cut_layers"]} if cfg.family == "encdec" else {}))
     m_dev = lm.init_params(torch.Generator(device=dev).manual_seed(spec["seed"] + 1), cut, device=dev)
     m_cpu = copy.deepcopy(m_dev).to("cpu")
     rand = np.random.default_rng(spec["seed"]).integers(0, cfg.vocab, (run["cpu_prompts"], sc.max_prompt))
-    t_cpu = torch.as_tensor(rand)
+    t_cpu = torch.as_tensor(rand[:, :spec.get("cut_tokens", sc.max_prompt)])
+    x_cpu = family_inputs(cut, run["cpu_prompts"], spec.get("cut_extra", 0), spec["seed"] + 5)
     vs_cpu = {}
     for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 5e-2)):
         log, routing = [], {}
         c0 = time.perf_counter()
         with recorded(log) if moe else contextlib.nullcontext():
-            lg_c, c_c = lm.prefill(m_cpu, cut, t_cpu, dtype=dtype)
+            lg_c, c_c = lm.prefill(m_cpu, cut, t_cpu, dtype=dtype, **x_cpu)
         cpu_s = time.perf_counter() - c0
         with replayed(log, routing) if moe else contextlib.nullcontext():
-            lg_d, c_d = lm.prefill(m_dev, cut, t_cpu.to(dev), dtype=dtype)
+            lg_d, c_d = lm.prefill(m_dev, cut, t_cpu.to(dev), dtype=dtype, **{kk: v.to(dev) for kk, v in x_cpu.items()})
         name = str(dtype)[6:]
-        kv_err = max(max_abs_err(c_d[kk].cpu(), c_c[kk]) for kk in ("k", "v"))
+        kv = [kk for kk in c_c if kk != "ssm"]  # k, v (and the encdec's xk, xv)
+        kv_err = max(max_abs_err(c_d[kk].cpu(), c_c[kk]) for kk in kv)
         vs_cpu[name] = {"logits_err": max_abs_err(lg_d.cpu(), lg_c), "tol": tol, "kv_err": kv_err,
                         "logits_max": float(lg_c.float().abs().max()), "cpu_seconds": cpu_s}
         if moe:
@@ -1614,7 +1678,7 @@ def family_phase(dev, kind: str, src: SageFile, oracle: "Oracle") -> dict:
             vs_cpu[name]["state_err"] = state_err(c_d["ssm"], c_c["ssm"])
         assert bool(torch.allclose(lg_d.cpu().float(), lg_c.float(), rtol=tol, atol=tol)), (name, vs_cpu[name])
         if dtype == torch.float32:
-            for kk in ("k", "v"):
+            for kk in kv:
                 assert bool(torch.allclose(c_d[kk].cpu(), c_c[kk], rtol=tol, atol=tol)), (kk, vs_cpu[name])
             if "ssm" in c_c:
                 assert vs_cpu[name]["state_err"] <= tol * (1 + max(float(v.abs().max()) for v in c_c["ssm"].values())), vs_cpu
@@ -1627,20 +1691,26 @@ def family_phase(dev, kind: str, src: SageFile, oracle: "Oracle") -> dict:
     t2 = torch.as_tensor(rand[:, :T], device=dev)
     if moe:
         cut = dataclasses.replace(cut, capacity_factor=cut.n_experts / cut.moe_top_k)
-    with torch.no_grad():
-        full, _ = lm.forward(m_dev, cut, t2, chunk=run["duality_chunk"], dtype=torch.float32)
-    _lg, pre = lm.prefill(m_dev, cut, t2, T, chunk=run["duality_chunk"], dtype=torch.float32)
-    dcache = lm.init_cache(cut, batch=t2.shape[0], max_len=T, dtype=torch.float32, device=dev)
-    outs = []
-    for t in range(T):
-        lg, dcache = lm.decode_step(m_dev, cut, t2[:, t:t + 1], dcache, t, dtype=torch.float32)
-        outs.append(lg[:, 0])
-    dec = torch.stack(outs, dim=1)
-    duality = {"logits_err": max_abs_err(dec, full), "kv_err": max(max_abs_err(dcache[kk], pre[kk]) for kk in ("k", "v")),
+    if cfg.family in ("vlm", "encdec"):  # one patch; as many frames as tokens (and cache slots)
+        x_dual = family_inputs(cut, t2.shape[0], spec.get("duality_extra", T), spec["seed"] + 6, dev)
+        dec, full, dcache, pre = prefix_duality(m_dev, cut, t2, x_dual, run["duality_chunk"])
+    else:
+        with torch.no_grad():
+            full, _ = lm.forward(m_dev, cut, t2, chunk=run["duality_chunk"], dtype=torch.float32)
+        _lg, pre = lm.prefill(m_dev, cut, t2, T, chunk=run["duality_chunk"], dtype=torch.float32)
+        dcache = lm.init_cache(cut, batch=t2.shape[0], max_len=T, dtype=torch.float32, device=dev)
+        outs = []
+        for t in range(T):
+            lg, dcache = lm.decode_step(m_dev, cut, t2[:, t:t + 1], dcache, t, dtype=torch.float32)
+            outs.append(lg[:, 0])
+        dec = torch.stack(outs, dim=1)
+    kv = [kk for kk in pre if kk != "ssm"]
+    duality = {"logits_err": max_abs_err(dec, full), "kv_err": max(max_abs_err(dcache[kk], pre[kk]) for kk in kv),
                "tol": 2e-2, "tokens": T, "chunk": LAYERS._pick_chunk(T, run["duality_chunk"]),
-               "capacity_factor": cut.capacity_factor if moe else None}
+               "capacity_factor": cut.capacity_factor if moe else None,
+               "extra": spec.get("duality_extra", T) if cfg.family in ("vlm", "encdec") else None}
     assert bool(torch.allclose(dec, full, rtol=2e-2, atol=2e-2)), duality
-    assert all(bool(torch.allclose(dcache[kk], pre[kk], rtol=2e-2, atol=2e-2)) for kk in ("k", "v")), duality
+    assert all(bool(torch.allclose(dcache[kk], pre[kk], rtol=2e-2, atol=2e-2)) for kk in kv), duality
     if "ssm" in pre:
         duality["state_err"] = state_err(dcache["ssm"], pre["ssm"])
         assert all(bool(torch.allclose(dcache["ssm"][kk], pre["ssm"][kk].float(), rtol=2e-2, atol=2e-2))
@@ -1655,16 +1725,22 @@ def family_phase(dev, kind: str, src: SageFile, oracle: "Oracle") -> dict:
     data = WORK / f"{kind}_train.sage2"
     write_v2(tile_sage_file(src, run["tiles"], first=spec["first_tile"]), data)
     S_ = spec["steps"]
+    n_img = spec.get("train_extra", 0) if cfg.family == "vlm" else 0
+    seq = run["seq"] - n_img  # the vlm's rows: n_img patches, then seq pipeline tokens
     opts = TrainOptions(adamw=AdamWConfig(lr=run["lr"], warmup_steps=run["warmup"], total_steps=S_))
     tstore = SageStore(group_blocks=GROUP)
     tstore.register("train", str(data))
-    pipe = SageTokenPipeline("train", cfg.vocab, run["batch"], run["seq"], store=tstore)
+    pipe = SageTokenPipeline("train", cfg.vocab, run["batch"], seq, store=tstore)
     assert pipe.k == k
     seen = []
+    gen_x = torch.Generator(device=dev).manual_seed(spec["seed"] + 7)
 
-    def tap(it):
+    def tap(it):  # the pipeline's batches, with the vlm's patches or the encdec's frames drawn beside them
         for b in it:
             seen.append(b)
+            if key_x:
+                b = {**b, key_x: torch.randn((run["batch"], spec["train_extra"], cfg.d_model), generator=gen_x,
+                                             device=dev).to(torch.bfloat16)}
             yield b
 
     class NoSaveTrainer(Trainer):  # no checkpoint at full width (~18 GB for qwen2, ~28 GB for zamba2)
@@ -1711,13 +1787,13 @@ def family_phase(dev, kind: str, src: SageFile, oracle: "Oracle") -> dict:
 
     train_prof = profile_window(one_step_of_run, focus=focus, ranges=attn + [(LAYERS, "_flash_bwd")] + experts,
                                kernels=("ssd_bwd",))
-    need = run["batch"] * (run["seq"] + 1)
+    need = run["batch"] * (seq + 1)
     base = spec["first_tile"] * n_src
     kpb = [oracle.rows[source_block(base + j, n_src)].size // k for j in range(run["tiles"] * n_src)]
     n_blocks = int(np.searchsorted(np.cumsum(kpb), len(seen) * need)) + 1
     flat = oracle.kmer_stream(np.arange(n_blocks) + base, k)
     for i, b in enumerate(seen):  # the run's batches and the two profiled steps'
-        want = flat[i * need:(i + 1) * need].reshape(run["batch"], run["seq"] + 1)
+        want = flat[i * need:(i + 1) * need].reshape(run["batch"], seq + 1)
         assert np.array_equal(b["tokens"], want[:, :-1]) and np.array_equal(b["labels"], want[:, 1:]), \
             f"{kind} train batch {i} disagrees with refdec's k-mer stream"
     del trainer, model, opt
@@ -1727,17 +1803,18 @@ def family_phase(dev, kind: str, src: SageFile, oracle: "Oracle") -> dict:
     # (e) a depth cut's train step (f32 activations) against the CPU
     cut2, c_dev, c_cpu = cut_models(cfg, spec["train_cut_layers"], dev, seed=spec["seed"] + 3)
     cb = cut_batch(cut2, run["cut_batch"], run["cut_seq"], seed=spec["seed"])
+    step, compare = (grads_of, compare_grads) if spec.get("grads_only") else (one_step, compare_step)
     log, routing = [], {}
     c0 = time.perf_counter()
     with recorded(log) if moe else contextlib.nullcontext():
-        on_cpu = one_step(cut2, c_cpu, cb, "cpu")
+        on_cpu = step(cut2, c_cpu, cb, "cpu")
     c1 = time.perf_counter()
     with replayed(log, routing) if moe else contextlib.nullcontext():
-        on_card = one_step(cut2, c_dev, cb, dev)
+        on_card = step(cut2, c_dev, cb, dev)
     c2 = time.perf_counter()
-    step_vs_cpu = compare_step(on_card, on_cpu, dev)
+    step_vs_cpu = compare(on_card, on_cpu, dev)
     step_vs_cpu.update(seconds=time.perf_counter() - c0, card_step_seconds=c2 - c1, cpu_step_seconds=c1 - c0,
-                       compare_seconds=time.perf_counter() - c2)
+                       compare_seconds=time.perf_counter() - c2, adamw=not spec.get("grads_only", False))
     if moe:
         step_vs_cpu["routing"] = {**routing, "agreed_share": routing["agreed"] / routing["decisions"]}
     del c_dev, c_cpu, on_card, on_cpu
@@ -1746,6 +1823,8 @@ def family_phase(dev, kind: str, src: SageFile, oracle: "Oracle") -> dict:
 
     # (f) the attention beside scaled_dot_product_attention
     yard = attention_yardstick(cfg, dev, spec["seed"] + 4)
+    if cfg.family == "encdec":  # the encoder's attention is bidirectional
+        yard = {"causal": yard, "bidirectional": attention_yardstick(cfg, dev, spec["seed"] + 4, causal=False)}
     torch.cuda.empty_cache()
     part("attention_yardstick")
 
@@ -1757,17 +1836,19 @@ def family_phase(dev, kind: str, src: SageFile, oracle: "Oracle") -> dict:
     emit(kind, arch=cfg.name, family=cfg.family, params=n_params, layers=whole.n_layers,
          serve_layers=spec.get("serve_layers", whole.n_layers), train_layers=cfg.n_layers, d_model=cfg.d_model,
          heads=[cfg.n_heads, cfg.n_kv_heads, cfg.head_dim], d_ff=cfg.d_ff, vocab=cfg.vocab, moe=moe_shape, kmer_k=k,
-         init_seconds=init_s,
+         enc_layers=cfg.n_enc_layers or None, init_seconds=init_s,
          serve={"prompts": len(prompts), "prompt_kmers": [int(p.size) for p in prompts], "prompt_seconds": prompt_s,
-                "max_prompt": sc.max_prompt, "max_new": sc.max_new, "generate_seconds": gen_s,
+                "max_prompt": sc.max_prompt, "max_new": sc.max_new, key_x or "extra": spec.get("extra"),
+                "generate_seconds": gen_s,
                 "generate_tokens_per_s": [n_tok / g for g in gen_s], "ssd_launches_per_generate": per_gen,
                 "launches": serve_n, "peak_device_bytes": serve_peak, "ttft_ms": ttft,
                 "decode_ms_per_step": dec_s / steps * 1e3, "decode_tokens_per_s": run["prompts"] * steps / dec_s,
                 "first_tokens": out[:, :8].tolist(), "prefill_dropped_share": dropped, "profile": serve_prof},
-         card_vs_cpu={"cut_layers": spec["cut_layers"], "prompts": run["cpu_prompts"], **vs_cpu},
+         card_vs_cpu={"cut_layers": spec["cut_layers"], "prompts": run["cpu_prompts"], "tokens": int(t_cpu.shape[1]),
+                      "extra": spec.get("cut_extra"), **vs_cpu},
          duality=duality,
-         train={"params": train_params, "batch": run["batch"], "seq": run["seq"], "steps": S_, "remat": "nothing",
-                "dtype": "bfloat16", "aux": aux,
+         train={"params": train_params, "batch": run["batch"], "seq": run["seq"], "tokens_a_row": seq,
+                "steps": S_, "remat": "nothing", "dtype": "bfloat16", "aux": aux,
                 "blocks": [base, base + run["tiles"] * n_src], "losses": losses, "step_ms": step_ms,
                 "median_step_ms_after_first": steady, "tokens_per_s": tok / (steady / 1e3), "run_seconds": run_s,
                 "launches": train_n, "launches_per_step": {kk: v / S_ for kk, v in train_n.items()},
@@ -2334,7 +2415,7 @@ def main() -> None:
     # ---- train: mamba2-370m at full width trains on SAGe k-mer tokens -----
     launches["ssd_intra_bwd"] = train_phase(dev, lm_cfg, src, oracles["illumina"])
 
-    # ---- dense and hybrid: qwen2-1.5b and zamba2-2.7b served and trained --
+    # ---- the families: qwen2-1.5b, zamba2-2.7b, deepseek-moe-16b, qwen2-vl-72b, whisper-small --
     for kind in FAMILY:
         family_phase(dev, kind, src, oracles["illumina"])
     for k, v in table.items():

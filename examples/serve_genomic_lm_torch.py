@@ -4,15 +4,18 @@ the SageServer frontend on the card.
 The paper's SAGe_Read/SAGe_ISP contract — decoded reads flow straight from
 the store into the analysis system — served to many concurrent tenants:
 ranged decodes, consensus windows, a streaming analysis feed, and genomic
-LM continuations (``--arch``: mamba2-370m by default, or a dense, moe or
-hybrid configuration such as qwen2-1.5b, deepseek-moe-16b or zamba2-2.7b)
-all share one scheduler,
+LM continuations (``--arch``: mamba2-370m by default, or a dense, moe,
+hybrid or encdec configuration such as qwen2-1.5b, deepseek-moe-16b,
+zamba2-2.7b or whisper-small, which the engine gives zero frames; the vlm
+family's default patches do not fit the cache and its generate requests
+fail, as in the JAX package) all share one scheduler,
 one continuous-batch loop, and one device-resident store.
 
   PYTHONPATH=src python examples/serve_genomic_lm_torch.py               # full width, on the card
   PYTHONPATH=src python examples/serve_genomic_lm_torch.py --device cpu  # reduced(), plain versions
   PYTHONPATH=src python examples/serve_genomic_lm_torch.py --arch zamba2-2.7b --device cpu
   PYTHONPATH=src python examples/serve_genomic_lm_torch.py --arch deepseek-moe-16b --device cpu
+  PYTHONPATH=src python examples/serve_genomic_lm_torch.py --arch whisper-small --device cpu
 """
 
 import argparse
@@ -33,7 +36,7 @@ from repro_torch.serving import SageServer, ServeConfig, ServingEngine, SessionP
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    ap.add_argument("--arch", default="mamba2-370m", help="an ssm, dense, moe or hybrid configuration")
+    ap.add_argument("--arch", default="mamba2-370m", help="an ssm, dense, moe, hybrid or encdec configuration")
     args = ap.parse_args()
     dev = torch.device(args.device)
     cfg = get_arch(args.arch)

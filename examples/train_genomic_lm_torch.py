@@ -4,7 +4,9 @@ examples/train_genomic_lm.py).
 
 By default a reduced mamba2-370m (4 layers, d_model 256) trains on the card;
 ``--arch`` takes a dense, moe or hybrid configuration instead (qwen2-1.5b,
-deepseek-moe-16b, moonshot-v1-16b-a3b, zamba2-2.7b, ...), ``--full`` the
+deepseek-moe-16b, moonshot-v1-16b-a3b, zamba2-2.7b, ...; the vlm and
+encdec families need patches or frames the token pipeline does not make,
+and raise ``ValueError``), ``--full`` the
 full architecture, ``--device cpu`` the
 plain torch versions on the CPU. A second run with the same ``--ckpt-dir`` resumes from
 the newest checkpoint (parameters, AdamW state and the data cursor).

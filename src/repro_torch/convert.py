@@ -19,7 +19,6 @@ import torch
 from repro_torch.checkpoint.checkpoint import LeafSpec
 from repro_torch.core.decode_torch import DeviceBlocks, host_to_tensor, resolve_device
 from repro_torch.core.format import BlockCaps, SageFile, SageMeta
-from repro_torch.models import lm
 
 
 def sage_file_from_reference(sf) -> SageFile:
@@ -54,13 +53,16 @@ def device_blocks_from_reference(db, device="cuda") -> DeviceBlocks:
     )
 
 
-def _lead(cfg) -> tuple[int, ...]:
-    """The leading axes the JAX package stacks a layer parameter on: (L,),
-    or the hybrid's (groups, attn_every)."""
-    lm._require_ported(cfg)
+def _stacks(cfg) -> tuple[tuple[str, tuple[int, ...]], ...]:
+    """The JAX package's stacked layer trees of ``cfg``: (key, the leading
+    axes it stacks a layer parameter on). (L,) under ``layers``, the
+    hybrid's (groups, attn_every), and the encdec family's ``enc_layers``
+    (n_enc_layers,) and ``dec_layers`` (L,)."""
+    if cfg.family == "encdec":
+        return ("enc_layers", (cfg.n_enc_layers,)), ("dec_layers", (cfg.n_layers,))
     if cfg.family == "hybrid":
-        return (cfg.n_layers // cfg.attn_every, cfg.attn_every)
-    return (cfg.n_layers,)
+        return (("layers", (cfg.n_layers // cfg.attn_every, cfg.attn_every)),)
+    return (("layers", (cfg.n_layers,)),)
 
 
 def _flat(tree, prefix: str = "") -> list[tuple[str, object]]:
@@ -81,45 +83,48 @@ def _nest(flat: dict) -> dict:
     return out
 
 
-def _layer_name(idx: tuple, key: str) -> str:
-    return "layers." + "".join(f"{i}." for i in idx) + key
+def _layer_name(stack: str, idx: tuple, key: str) -> str:
+    return f"{stack}." + "".join(f"{i}." for i in idx) + key
 
 
 def lm_params_from_reference(cfg, params) -> dict[str, torch.Tensor]:
     """A ``state_dict`` for the model of ``cfg`` (``lm.init_params``)
     holding the JAX package's parameters ``params`` (its nested dict with
-    layer parameters stacked on a leading L axis, or the hybrid's (groups,
-    attn_every) axes; any arrays ``np.asarray`` takes). Layers are unstacked
-    into ``layers.<i>.…`` (``layers.<g>.<j>.…``), the hybrid's
-    ``shared_attn`` keeps its keys; values stay f32."""
-    lead = _lead(cfg)
+    layer parameters stacked on leading axes, ``_stacks``; any arrays
+    ``np.asarray`` takes). Stacked layers are unstacked into
+    ``layers.<i>.…`` (``layers.<g>.<j>.…``, ``enc_layers.<i>.…``,
+    ``dec_layers.<i>.…``); every other leaf (``embed``, ``norm_f``,
+    ``lm_head``, the hybrid's ``shared_attn``, the encdec family's
+    ``enc_norm_f``, ``pos_emb_enc`` and ``pos_emb_dec``) keeps its
+    ``.``-joined key; values stay f32."""
+    stacks = dict(_stacks(cfg))
 
     def t(a) -> torch.Tensor:
         return torch.from_numpy(np.array(a, dtype=np.float32))
 
-    sd = {k: t(params[k]) for k in ("embed", "norm_f", "lm_head") if k in params}
-    for key, a in _flat(params["layers"]):
-        a = np.asarray(a)
-        for idx in np.ndindex(*lead):
-            sd[_layer_name(idx, key)] = t(a[idx])
-    if cfg.family == "hybrid":
-        sd.update({f"shared_attn.{k}": t(a) for k, a in _flat(params["shared_attn"])})
+    sd = {}
+    for top, tree in params.items():
+        if top not in stacks:
+            sd.update({k: t(a) for k, a in _flat(tree, f"{top}.")})
+            continue
+        for key, a in _flat(tree):
+            a = np.asarray(a)
+            for idx in np.ndindex(*stacks[top]):
+                sd[_layer_name(top, idx, key)] = t(a[idx])
     return sd
 
 
 def _to_reference(cfg, named: dict, leaf) -> dict:
     """``named`` ({state-dict name: tensor}) in the JAX package's nested
-    layout; ``leaf(t)`` takes one tensor, ``leaf(ts, lead)`` the layers'
-    list of tensors to stack on the ``lead`` axes."""
-    lead = _lead(cfg)
-    idx = list(np.ndindex(*lead))
-    first = _layer_name(idx[0], "")
-    keys = [k[len(first):] for k in named if k.startswith(first)]
-    out = {k: leaf(named[k]) for k in ("embed", "norm_f", "lm_head") if k in named}
-    out["layers"] = _nest({k: leaf([named[_layer_name(i, k)] for i in idx], lead) for k in keys})
-    if cfg.family == "hybrid":
-        out["shared_attn"] = _nest({k[len("shared_attn."):]: leaf(v) for k, v in named.items()
-                                    if k.startswith("shared_attn.")})
+    layout; ``leaf(t)`` takes one tensor, ``leaf(ts, lead)`` a stack's list
+    of tensors to stack on its ``lead`` axes."""
+    stacks = _stacks(cfg)
+    out = _nest({k: leaf(v) for k, v in named.items() if k.split(".", 1)[0] not in dict(stacks)})
+    for top, lead in stacks:
+        idx = list(np.ndindex(*lead))
+        first = _layer_name(top, idx[0], "")
+        keys = [k[len(first):] for k in named if k.startswith(first)]
+        out[top] = _nest({k: leaf([named[_layer_name(top, i, k)] for i in idx], lead) for k in keys})
     return out
 
 

@@ -5,12 +5,17 @@ port of ``src/repro/launch/serve.py``), on the card unless asked for the CPU.
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --requests 4 --max-new 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b --requests 8 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b --smoke --device cpu --requests 4 --max-new 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small --device cpu --requests 4 --max-new 8
 
-``--arch`` (default ``mamba2-370m``) takes a configuration of the ssm,
-dense, moe or hybrid family (mamba2-370m, qwen2-1.5b, yi-9b, yi-34b,
-minitron-8b, deepseek-moe-16b, moonshot-v1-16b-a3b, zamba2-2.7b); the vlm
-and encdec families raise, naming the ROADMAP slice that brings them.
-``--smoke`` serves the config's ``reduced()`` cut. Weights are drawn from a
+``--arch`` (default ``mamba2-370m``) takes any configuration of the
+registry (mamba2-370m, qwen2-1.5b, yi-9b, yi-34b, minitron-8b,
+deepseek-moe-16b, moonshot-v1-16b-a3b, zamba2-2.7b, whisper-small,
+qwen2-vl-72b). The engine passes zero frames of (B, max_prompt, d_model)
+to the encdec and vlm families, as the JAX package's does: whisper-small
+serves, and qwen2-vl-72b's generate requests fail with ``ValueError``
+(its max_prompt patches and max_prompt tokens do not fit a cache of
+max_prompt + max_new + 1 slots), which the launcher raises, as the JAX
+package's launcher does. ``--smoke`` serves the config's ``reduced()`` cut. Weights are drawn from a
 ``torch.Generator`` seeded with 0. ``--frontend`` (default) drives
 the full scheduler + continuous-batching stack; ``--no-frontend`` keeps the
 bare engine path (one padded batch of ``prompts_from_store`` prompts) for

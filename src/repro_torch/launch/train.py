@@ -9,8 +9,11 @@ the CPU.
 
 ``--arch`` (default ``mamba2-370m``) takes a configuration of the ssm,
 dense, moe or hybrid family (mamba2-370m, qwen2-1.5b, yi-9b, yi-34b,
-minitron-8b, deepseek-moe-16b, moonshot-v1-16b-a3b, zamba2-2.7b); the vlm
-and encdec families raise, naming the ROADMAP slice that brings them.
+minitron-8b, deepseek-moe-16b, moonshot-v1-16b-a3b, zamba2-2.7b). The vlm
+(qwen2-vl-72b) and encdec (whisper-small) families need image patches or
+encoder frames beside the tokens, which the token pipeline does not make:
+their first step raises ``ValueError`` naming the missing input (the JAX
+package's launcher fails there too).
 ``--smoke`` trains the config's ``reduced()`` cut. Weights are drawn from a
 ``torch.Generator`` seeded with 0. The reads are encoded by the batched
 ``SageEncoder`` on ``--device`` into a ``SageTokenPipeline`` over a fused

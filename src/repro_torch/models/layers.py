@@ -1,6 +1,7 @@
-"""Shared model layers (torch): norms, rotary embeddings, GQA attention
-(the blockwise ``causal_flash`` with its written-out backward, cached
-decode attention), the MLP, and the loss.
+"""Shared model layers (torch): norms (RMS and Layer), rotary embeddings
+(RoPE and Qwen2-VL's M-RoPE), GQA attention (the blockwise ``causal_flash``
+with its written-out backward, cached decode attention, the
+encoder-decoder cross attention), the MLP, and the loss.
 
 Conventions, as in the JAX package: activations flow in a compute dtype
 (bf16 by default), parameters live in f32, matrices are ``(d_in, d_out)``
@@ -42,6 +43,14 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Te
     xf = x.to(F32)
     y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (y * (1.0 + scale.to(F32))).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm computed in f32 and cast back to ``x``'s dtype."""
+    xf = x.to(F32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * scale + bias).to(x.dtype)
 
 
 def cast_once(cache: dict, named: dict, dtype) -> dict:
@@ -103,6 +112,28 @@ def rope_apply(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     freqs = rope_freqs(dh, theta, x.device)
     ang = positions[..., None].to(F32) * freqs  # (..., S, Dh/2)
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., : dh // 2], x[..., dh // 2 :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def mrope_sections(head_dim: int, sections) -> torch.Tensor:
+    """The position stream (0 = t, 1 = h, 2 = w) of each of the head_dim/2
+    rotary pairs: ``sections[i]`` pairs of stream i, cut to head_dim/2
+    entries, or filled up with the last stream's index (as
+    ``jnp.repeat(arange(3), sections, total_repeat_length=Dh // 2)``)."""
+    sec = torch.repeat_interleave(torch.arange(3), torch.as_tensor(tuple(sections)))[: head_dim // 2]
+    return torch.cat([sec, sec[-1:].expand(head_dim // 2 - sec.numel())])
+
+
+def mrope_apply(x: torch.Tensor, positions3: torch.Tensor, theta: float, sections) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: the rotary pairs are split into (t, h, w)
+    sections, each turned by its own position stream. x: (B, S, H, Dh);
+    positions3: (B, 3, S). In f32, cast back to ``x``'s dtype."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)
+    sec = mrope_sections(dh, sections).to(x.device)
+    ang = positions3.to(F32)[:, sec, :].transpose(1, 2) * freqs  # (B, S, Dh/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1, x2 = x[..., : dh // 2], x[..., dh // 2 :]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
@@ -264,28 +295,69 @@ def causal_flash(q, k, v, chunk: int = 1024, bidirectional: bool = False) -> tor
     return _flash_fwd_impl(q, k, v, chunk, bidirectional)[0]
 
 
-def _rope_qk(q, k, positions, cfg):
-    if cfg.mrope or cfg.learned_pos:
-        raise NotImplementedError(
-            f"{cfg.name}: M-RoPE and learned positions come with ROADMAP Queue A, slice 6b part 3")
+def _rope_qk(q, k, positions, positions3, cfg):
+    """q and k turned as the configuration asks: not at all with learned
+    positions (the encoder-decoder adds them to its inputs), by M-RoPE at
+    ``positions3`` (B, 3, S), else by RoPE at ``positions``."""
+    if cfg.learned_pos:
+        return q, k
+    if cfg.mrope:
+        return (mrope_apply(q, positions3, cfg.rope_theta, cfg.mrope_sections),
+                mrope_apply(k, positions3, cfg.rope_theta, cfg.mrope_sections))
     return rope_apply(q, positions, cfg.rope_theta), rope_apply(k, positions, cfg.rope_theta)
 
 
-def attention_train(p: dict, x, cfg, positions=None, chunk: int = 1024, bidirectional: bool = False,
-                    collect_kv: bool = False):
+def attention_train(p: dict, x, cfg, positions=None, positions3=None, chunk: int = 1024,
+                    bidirectional: bool = False, collect_kv: bool = False):
     """Self attention of x (B, S, d) with RoPE at ``positions`` (default
-    0..S-1). Returns out (B, S, d), and with ``collect_kv`` also (k, v)
-    after RoPE, as a prefill caches them."""
+    0..S-1), M-RoPE at ``positions3`` or no rotation (``_rope_qk``).
+    Returns out (B, S, d), and with ``collect_kv`` also (k, v) after the
+    rotation, as a prefill caches them."""
     B, S, _ = x.shape
     q, k, v = qkv_project(p, x, cfg)
     pos = positions if positions is not None else torch.arange(S, device=x.device)[None, :]
-    q, k = _rope_qk(q, k, pos, cfg)
+    q, k = _rope_qk(q, k, pos, positions3, cfg)
     o = causal_flash(q, k, v, chunk, bidirectional)
     out = o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
     return (out, (k, v)) if collect_kv else out
 
 
-def attention_decode(p: dict, x, cache_k, cache_v, cur_index: int, cfg, positions=None):
+def cross_kv(p: dict, kv_out, cfg):
+    """The cross attention's keys and values of the encoder output kv_out
+    (B, T, d): (k, v), each (B, T, KV, Dh) in kv_out's dtype, no bias."""
+    B, T, _ = kv_out.shape
+    KV, Dh = cfg.n_kv_heads, cfg.head_dim
+    return ((kv_out @ p["wk"].to(kv_out.dtype)).reshape(B, T, KV, Dh),
+            (kv_out @ p["wv"].to(kv_out.dtype)).reshape(B, T, KV, Dh))
+
+
+def cross_attention(p: dict, x, kv_out, cfg, kv=None):
+    """Encoder-decoder cross attention of x (B, S, d) over kv_out (B, T, d):
+    full (no mask), no rotation, no bias. With S == T it is the flash
+    attention, bidirectional, in blocks of min(1024, S); otherwise
+    :func:`_full_attn`, as in the JAX package. ``kv``: ``cross_kv(p,
+    kv_out, cfg)`` where the caller has it already (a prefill caches it)."""
+    B, S, _ = x.shape
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k, v = cross_kv(p, kv_out, cfg) if kv is None else kv
+    o = causal_flash(q, k, v, min(1024, S), True) if S == k.shape[1] else _full_attn(q, k, v)
+    return o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+
+
+def _full_attn(q, k, v):
+    """Softmax attention of every query over every key, GQA: q (B, S, H,
+    Dh), k and v (B, T, KV, Dh). Scores in f32 from upcast operands, the
+    probabilities cast to v's dtype before the PV product; out in q's
+    dtype."""
+    B, S, H, Dh = q.shape
+    KV = k.shape[2]
+    qh, kh, vh = _heads_first(q, k, v)  # (B, KV, G·S, Dh), (B, KV, T, Dh)
+    a = torch.softmax((qh @ kh.transpose(-1, -2)) / math.sqrt(Dh), dim=-1)
+    o = a.to(v.dtype).to(F32) @ vh  # (B, KV, G·S, Dh)
+    return o.view(B, KV, H // KV, S, Dh).permute(0, 3, 1, 2, 4).reshape(B, S, H, Dh).to(q.dtype)
+
+
+def attention_decode(p: dict, x, cache_k, cache_v, cur_index: int, cfg, positions=None, positions3=None):
     """One token x (B, 1, d) against a KV cache (B, T, KV, Dh) holding
     ``cur_index`` tokens. The new K and V are written at ``cur_index`` into
     ``cache_k`` / ``cache_v`` themselves (the JAX package returns updated
@@ -296,7 +368,7 @@ def attention_decode(p: dict, x, cache_k, cache_v, cur_index: int, cfg, position
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = qkv_project(p, x, cfg)
     pos = positions if positions is not None else torch.full((B, 1), cur_index, device=x.device)
-    q, k = _rope_qk(q, k, pos, cfg)
+    q, k = _rope_qk(q, k, pos, positions3, cfg)
     cache_k[:, cur_index] = k[:, 0].to(cache_k.dtype)
     cache_v[:, cur_index] = v[:, 0].to(cache_v.dtype)
     qg = q.reshape(B, KV, H // KV, Dh).to(F32)
@@ -306,6 +378,20 @@ def attention_decode(p: dict, x, cache_k, cache_v, cur_index: int, cfg, position
     o = a.to(cache_v.dtype).to(F32) @ cache_v.to(F32).permute(0, 2, 1, 3)  # (B, KV, G, Dh)
     o = o.reshape(B, 1, H * Dh).to(x.dtype)
     return o @ p["wo"].to(x.dtype), cache_k, cache_v
+
+
+def cached_cross(q, xk, xv):
+    """One decode step's cross attention: q (B, 1, H, Dh) over every slot of
+    the cached encoder keys and values xk, xv (B, T, KV, Dh), with no mask
+    (the JAX package's ``_cached_cross``: slots past the encoder's frames,
+    zeros in a prefill's cache, take part too). Returns (B, 1, H·Dh) in q's
+    dtype."""
+    B, _, H, Dh = q.shape
+    KV = xk.shape[2]
+    qg = q.reshape(B, KV, H // KV, Dh).to(F32)
+    a = torch.softmax((qg @ xk.to(F32).permute(0, 2, 3, 1)) / math.sqrt(Dh), dim=-1)  # (B, KV, G, T)
+    o = a.to(xv.dtype).to(F32) @ xv.to(F32).permute(0, 2, 1, 3)  # (B, KV, G, Dh)
+    return o.reshape(B, 1, H * Dh).to(q.dtype)
 
 
 # --------------------------------------------------------------------------

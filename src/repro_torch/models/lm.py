@@ -1,18 +1,26 @@
-"""Language models over SAGe's k-mer tokens, four families of the JAX
+"""Language models over SAGe's k-mer tokens, the six families of the JAX
 package's ``lm.py``:
 
   ssm     embed -> [Mamba2 block] x L -> norm -> head
   dense   embed -> [GQA attention + MLP] x L -> norm -> head
+  vlm     [patch embeddings ; embed] -> [GQA attention (M-RoPE) + MLP] x L
+          -> norm -> head over the text positions (qwen2-vl)
   moe     embed -> [GQA attention + MoE] x L -> norm -> head
   hybrid  embed -> [groups: attn_every Mamba2 blocks + ONE shared
           attention block] -> norm -> head (zamba2)
+  encdec  frames + learned positions -> [bidirectional attention + MLP] x
+          n_enc; embed + learned positions -> [causal attention + cross
+          attention + MLP] x L -> LayerNorm -> head (whisper; the frames
+          are the stub frontend's embeddings)
 
 Activations flow in bf16 by default and parameters live in f32, as in the
 JAX package; ``dtype=`` runs the same code in f32. Parameter names follow
 the JAX package's keys (``embed``, ``norm_f``, ``layers.<i>.norm1``,
 ``layers.<i>.attn.wq``, the moe family's ``layers.<i>.moe.experts.up``,
-the hybrid's ``layers.<g>.<j>.ssm.in_x`` and ``shared_attn.mlp.up``,
-...), matrices keep its ``(d_in, d_out)`` layout, and the JAX package's
+the hybrid's ``layers.<g>.<j>.ssm.in_x`` and ``shared_attn.mlp.up``, the
+encdec family's ``enc_layers.<i>.ln1.scale``, ``dec_layers.<i>.xattn.wq``,
+``enc_norm_f.bias`` and ``pos_emb_dec``, ...), matrices keep its
+``(d_in, d_out)`` layout, and the JAX package's
 stacked layer parameters map onto them through
 ``repro_torch.convert.lm_params_from_reference``.
 
@@ -23,17 +31,19 @@ unless the caller asks for the CPU (``device="cpu"``); without a card,
 ``init_cache`` dispatch on ``cfg.family`` as the JAX package does.
 
 Training runs ``forward`` under autograd (``training.steps``), with each
-block checkpointed (``remat``) as the JAX package does: every dense and
-moe block, and every Mamba2 block of the hybrid, whose shared attention
-block is not checkpointed. The moe family's ``forward`` also returns the
-sum of its layers' load-balance aux losses. Serving (``prefill``,
+block checkpointed (``remat``) as the JAX package does: every dense, vlm
+and moe block, every encoder and decoder layer, and every Mamba2 block of
+the hybrid, whose shared attention block is not checkpointed. The moe
+family's ``forward`` also returns the sum of its layers' load-balance aux
+losses. Serving (``prefill``,
 ``decode_step``) runs without autograd. With grad mode off every layer
 keeps one copy of its matrices (and the model one of its embedding) in
 the compute dtype, made once (``layers.cast_once``); the values equal
 JAX's per-call ``astype``.
 
-The vlm and encdec families raise ``NotImplementedError`` naming the
-ROADMAP slice that brings them.
+Where the JAX package fails on an input (a vlm or encdec forward without
+its patches or frames, a prefill longer than its cache), the port raises
+``ValueError`` naming the cause.
 """
 
 from __future__ import annotations
@@ -48,21 +58,9 @@ from repro_torch.core.decode_torch import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
-from repro_torch.models.layers import BF16, cast_once, dense_init, embed_init, rmsnorm
+from repro_torch.models.layers import BF16, cast_once, dense_init, embed_init, layernorm, rmsnorm
 
-_NOT_PORTED = {
-    "vlm": "M-RoPE and patch embeddings",
-    "encdec": "the encoder-decoder stack (LayerNorm, cross attention, learned positions)",
-}
-
-
-def _require_ported(cfg) -> None:
-    if cfg.family not in MODELS:
-        why = _NOT_PORTED.get(cfg.family, "its layers")
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet ({why}); it comes with "
-            f"ROADMAP Queue A, slice 6b part 3: the vlm and encdec families"
-        )
+N_POS = 32_768  #: rows of the encdec family's learned position tables
 
 
 class Mamba2Block(nn.Module):
@@ -93,20 +91,21 @@ class AttnBlock(nn.Module):
     def _mlp(self, x, cfg):
         return x + L.mlp_apply(self.mlp.params(x.dtype), rmsnorm(x, self.norm2, cfg.norm_eps), cfg.act, cfg.gated_mlp)
 
-    def forward(self, x, cfg, chunk: int = 1024, collect_kv: bool = False):
-        """Training / prefill over (B, S, d); with ``collect_kv`` returns
-        (x, (k, v)) for the cache."""
+    def forward(self, x, cfg, chunk: int = 1024, collect_kv: bool = False, positions3=None):
+        """Training / prefill over (B, S, d) (the vlm family's M-RoPE at
+        ``positions3``); with ``collect_kv`` returns (x, (k, v)) for the
+        cache."""
         h = L.attention_train(self.attn.params(x.dtype), rmsnorm(x, self.norm1, cfg.norm_eps), cfg,
-                              chunk=chunk, collect_kv=collect_kv)
+                              positions3=positions3, chunk=chunk, collect_kv=collect_kv)
         if collect_kv:
             h, kv = h
             return self._mlp(x + h, cfg), kv
         return self._mlp(x + h, cfg)
 
-    def decode(self, x, cfg, cache_k, cache_v, cur_index: int):
+    def decode(self, x, cfg, cache_k, cache_v, cur_index: int, positions3=None):
         """One token (B, 1, d); writes its K and V into the cache views."""
         h, _, _ = L.attention_decode(self.attn.params(x.dtype), rmsnorm(x, self.norm1, cfg.norm_eps),
-                                     cache_k, cache_v, cur_index, cfg)
+                                     cache_k, cache_v, cur_index, cfg, positions3=positions3)
         return self._mlp(x + h, cfg)
 
 
@@ -126,22 +125,91 @@ class MoEBlock(nn.Module):
         h, aux = M.moe_apply(self.moe.params(x.dtype), rmsnorm(x, self.norm2, cfg.norm_eps), cfg)
         return x + h, aux
 
-    def forward(self, x, cfg, chunk: int = 1024, collect_kv: bool = False):
+    def forward(self, x, cfg, chunk: int = 1024, collect_kv: bool = False, positions3=None):
         """Training / prefill over (B, S, d): (x, aux), and with
         ``collect_kv`` (x, aux, (k, v)) for the cache."""
         h = L.attention_train(self.attn.params(x.dtype), rmsnorm(x, self.norm1, cfg.norm_eps), cfg,
-                              chunk=chunk, collect_kv=collect_kv)
+                              positions3=positions3, chunk=chunk, collect_kv=collect_kv)
         if collect_kv:
             h, kv = h
             return (*self._moe(x + h, cfg), kv)
         return self._moe(x + h, cfg)
 
-    def decode(self, x, cfg, cache_k, cache_v, cur_index: int):
+    def decode(self, x, cfg, cache_k, cache_v, cur_index: int, positions3=None):
         """One token (B, 1, d); writes its K and V into the cache views. The
         aux loss is dropped, as the reference's decode drops it."""
         h, _, _ = L.attention_decode(self.attn.params(x.dtype), rmsnorm(x, self.norm1, cfg.norm_eps),
-                                     cache_k, cache_v, cur_index, cfg)
+                                     cache_k, cache_v, cur_index, cfg, positions3=positions3)
         return self._moe(x + h, cfg)[0]
+
+
+def _ln(gen: torch.Generator, d: int) -> L.Params:
+    """A LayerNorm's ``scale`` (ones) and ``bias`` (zeros), kept in f32."""
+    return L.Params({"scale": torch.ones((d,), device=gen.device), "bias": torch.zeros((d,), device=gen.device)},
+                    cast=())
+
+
+def _norm(ln: L.Params, x, cfg):
+    return layernorm(x, ln.scale, ln.bias, cfg.norm_eps)
+
+
+class EncLayer(nn.Module):
+    """The encdec family's encoder layer: ``x + attn(ln1(x))`` over every
+    frame (bidirectional), then ``x + enc_mlp(ln2(x))``; keys ln1, ln2,
+    attn, enc_mlp."""
+
+    def __init__(self, cfg, gen: torch.Generator) -> None:
+        super().__init__()
+        self.ln1, self.ln2 = _ln(gen, cfg.d_model), _ln(gen, cfg.d_model)
+        self.attn = L.Params(L.attn_init(gen, cfg))
+        self.enc_mlp = L.Params(L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp))
+
+    def forward(self, x, cfg, chunk: int = 1024):
+        x = x + L.attention_train(self.attn.params(x.dtype), _norm(self.ln1, x, cfg), cfg, chunk=chunk,
+                                  bidirectional=True)
+        return x + L.mlp_apply(self.enc_mlp.params(x.dtype), _norm(self.ln2, x, cfg), cfg.act, cfg.gated_mlp)
+
+
+class DecLayer(nn.Module):
+    """The encdec family's decoder layer: causal self attention, cross
+    attention over the encoder's output, MLP, each pre-LayerNorm residual;
+    keys ln1, ln2, ln3, attn, xattn, dec_mlp."""
+
+    def __init__(self, cfg, gen: torch.Generator) -> None:
+        super().__init__()
+        self.ln1, self.ln2, self.ln3 = (_ln(gen, cfg.d_model) for _ in range(3))
+        self.attn = L.Params(L.attn_init(gen, cfg))
+        self.xattn = L.Params(L.attn_init(gen, cfg))
+        self.dec_mlp = L.Params(L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp))
+
+    def _mlp(self, x, cfg):
+        return x + L.mlp_apply(self.dec_mlp.params(x.dtype), _norm(self.ln3, x, cfg), cfg.act, cfg.gated_mlp)
+
+    def forward(self, x, cfg, chunk: int, enc_out, collect_kv: bool = False):
+        """Training / prefill over (B, S, d); with ``collect_kv`` returns
+        (x, (k, v, xk, xv)): the self attention's and the cross
+        attention's keys and values, for the cache."""
+        h = L.attention_train(self.attn.params(x.dtype), _norm(self.ln1, x, cfg), cfg, chunk=chunk,
+                              collect_kv=collect_kv)
+        if collect_kv:
+            h, kv = h
+        x = x + h
+        xp = self.xattn.params(x.dtype)
+        xkv = L.cross_kv(xp, enc_out, cfg) if collect_kv else None
+        x = self._mlp(x + L.cross_attention(xp, _norm(self.ln2, x, cfg), enc_out, cfg, kv=xkv), cfg)
+        return (x, (*kv, *xkv)) if collect_kv else x
+
+    def decode(self, x, cfg, cache: dict, i: int, cur_index: int):
+        """One token (B, 1, d): self attention writing its K and V at
+        ``cur_index`` of layer ``i``'s cache, then cross attention over all
+        of its cached ``xk`` / ``xv`` slots (``layers.cached_cross``)."""
+        h, _, _ = L.attention_decode(self.attn.params(x.dtype), _norm(self.ln1, x, cfg), cache["k"][i],
+                                     cache["v"][i], cur_index, cfg)
+        x = x + h
+        xp = self.xattn.params(x.dtype)
+        q = (_norm(self.ln2, x, cfg) @ xp["wq"]).reshape(x.shape[0], 1, cfg.n_heads, cfg.head_dim)
+        x = x + L.cached_cross(q, cache["xk"][i], cache["xv"][i]) @ xp["wo"]
+        return self._mlp(x, cfg)
 
 
 class _LM(nn.Module):
@@ -149,7 +217,6 @@ class _LM(nn.Module):
     ``device`` (``gen`` must live there). The families add their layers."""
 
     def __init__(self, cfg, gen: torch.Generator, device="cuda") -> None:
-        _require_ported(cfg)
         dev = resolve_device(device)
         if gen.device.type != dev.type or (dev.index is not None and gen.device.index != dev.index):
             raise ValueError(f"the generator lives on {gen.device}, the weights are asked for on {dev}")
@@ -185,6 +252,30 @@ class DenseLM(_LM):
         self.layers = nn.ModuleList(AttnBlock(cfg, gen) for _ in range(cfg.n_layers))
 
 
+class VlmLM(DenseLM):
+    """The vlm family (qwen2-vl): the dense layout (``layers`` holds
+    ``cfg.n_layers`` :class:`AttnBlock`); its inputs put patch embeddings
+    before the tokens, and its attention turns by M-RoPE."""
+
+
+class EncDecLM(_LM):
+    """The encdec family (whisper): ``enc_layers`` holds ``n_enc_layers``
+    :class:`EncLayer`, ``dec_layers`` ``n_layers`` :class:`DecLayer`;
+    ``enc_norm_f`` (a LayerNorm) is the decoder's final norm, as in the JAX
+    package, whose ``norm_f`` this model also carries, unused, for the
+    checkpoints; ``pos_emb_enc`` / ``pos_emb_dec`` are learned position
+    tables of ``N_POS`` rows drawn at 0.01 x normal."""
+
+    def __init__(self, cfg, gen: torch.Generator, device="cuda") -> None:
+        super().__init__(cfg, gen, device)
+        self.enc_layers = nn.ModuleList(EncLayer(cfg, gen) for _ in range(cfg.n_enc_layers))
+        self.dec_layers = nn.ModuleList(DecLayer(cfg, gen) for _ in range(cfg.n_layers))
+        self.enc_norm_f = _ln(gen, cfg.d_model)
+        for name in ("pos_emb_enc", "pos_emb_dec"):
+            self.register_parameter(name, nn.Parameter(
+                torch.randn((N_POS, cfg.d_model), generator=gen, device=gen.device) * 0.01))
+
+
 class MoELM(_LM):
     """The moe family: ``layers`` holds ``cfg.n_layers`` :class:`MoEBlock`."""
 
@@ -208,13 +299,15 @@ class HybridLM(_LM):
         self.shared_attn = AttnBlock(cfg, gen)
 
 
-MODELS = {"ssm": Mamba2LM, "dense": DenseLM, "moe": MoELM, "hybrid": HybridLM}
+MODELS = {"ssm": Mamba2LM, "dense": DenseLM, "vlm": VlmLM, "moe": MoELM, "hybrid": HybridLM,
+          "encdec": EncDecLM}
 
 
 def init_params(gen: torch.Generator, cfg, *, device="cuda") -> _LM:
     """A model of ``cfg`` (its family's class) with weights drawn from
     ``gen`` on ``device``."""
-    _require_ported(cfg)
+    if cfg.family not in MODELS:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     return MODELS[cfg.family](cfg, gen, device)
 
 
@@ -226,6 +319,45 @@ def _head(model: _LM, x):
     return x @ model.head_weight(x.dtype)
 
 
+def _mrope_positions(cfg, B: int, S_img: int, S_text: int, device="cpu") -> torch.Tensor:
+    """(B, 3, S_img + S_text) position streams: the image patches on an
+    (h, w) grid of side floor(sqrt(S_img)) at t = 0, then the text tokens
+    advancing all three streams together from max(grid) + 1."""
+    if S_img == 0:  # the JAX package takes the max of the empty grid, which raises
+        raise ValueError(f"{cfg.name}: M-RoPE positions need at least one image patch")
+    side = max(int(S_img ** 0.5), 1)
+    i = torch.arange(S_img)
+    img = torch.stack([torch.zeros_like(i), i // side, i % side])
+    t = torch.arange(S_text) + max(int(img.max()) + 1, 1)
+    pos = torch.cat([img, torch.stack([t, t, t])], dim=1)
+    return pos[None].expand(B, 3, S_img + S_text).to(device)
+
+
+def _need(cfg, what: str, value):
+    if value is None:
+        shape = {"patch_embeds": "(B, S_img, d_model), the image patches put before the tokens",
+                 "frames": "(B, T, d_model), the encoder's input"}[what]
+        raise ValueError(f"{cfg.name}: the {cfg.family} family needs {what}= {shape}; "
+                         f"a batch of tokens alone has none")
+    return value
+
+
+def _vlm_inputs(cfg, x, patch_embeds, dtype):
+    """[patch embeddings ; token embeddings x] and their M-RoPE positions."""
+    patches = _need(cfg, "patch_embeds", patch_embeds)
+    pos3 = _mrope_positions(cfg, x.shape[0], patches.shape[1], x.shape[1], x.device)
+    return torch.cat([patches.to(dtype), x], dim=1), pos3
+
+
+def _enc_inputs(model: _LM, cfg, frames, dtype):
+    frames = _need(cfg, "frames", frames)
+    return frames.to(dtype) + model.pos_emb_enc[: frames.shape[1]].to(dtype)[None]
+
+
+def _dec_inputs(model: _LM, tokens, dtype):
+    return _embed(model, tokens, dtype) + model.pos_emb_dec[: tokens.shape[1]].to(dtype)[None]
+
+
 #: matmul outputs a ``"dots"`` block keeps (the 2-D products ``x @ W``; as
 #: JAX's ``dots_with_no_batch_dims_saveable``, batched products are recomputed)
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -235,43 +367,64 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _block(layer, x, cfg, chunk):
-    """A layer's training forward: x, or the moe block's (x, aux)."""
+def _block(layer, x, cfg, chunk, extra=None):
+    """A layer's training forward: x, or the moe block's (x, aux).
+    ``extra`` is the vlm family's M-RoPE positions, or a decoder layer's
+    encoder output."""
     if isinstance(layer, Mamba2Block):
         return layer(x, cfg)[0]
-    return layer(x, cfg, chunk)
+    if isinstance(layer, DecLayer):
+        return layer(x, cfg, chunk, extra)
+    if isinstance(layer, EncLayer):
+        return layer(x, cfg, chunk)
+    return layer(x, cfg, chunk, positions3=extra)
 
 
-def forward(model: _LM, cfg, tokens, *, remat: bool = True, remat_policy: str = "nothing",
-            chunk: int = 1024, dtype=BF16):
+def forward(model: _LM, cfg, tokens, *, patch_embeds=None, frames=None, remat: bool = True,
+            remat_policy: str = "nothing", chunk: int = 1024, dtype=BF16):
     """Training/prefill forward over ``tokens`` (B, S). Returns (logits
     (B, S, V), aux loss): the moe family's aux is the sum of its layers'
     load-balance losses, a 0-d f32 tensor; the other families give 0.0.
+    The vlm family takes ``patch_embeds`` (B, S_img, d), put before the
+    tokens with M-RoPE positions (``_mrope_positions``), and returns the
+    logits of the text positions only; the encdec family takes ``frames``
+    (B, T, d), the encoder's input (its attention is bidirectional, its
+    decoder's causal).
 
-    With ``remat`` and grad mode on, each dense or moe block and each
-    Mamba2 block runs under ``torch.utils.checkpoint`` (non-reentrant): its
-    activations are dropped and recomputed in the backward, so its forward
-    (B6, the attention, the MoE dispatch) runs twice a step; a moe block's
-    aux leaves the checkpoint beside x, as a tuple output. The hybrid's
-    shared block is not checkpointed (``lm.py:196-208`` of the JAX
-    package). ``remat_policy``
-    ``"nothing"`` keeps only each block's input, ``"dots"`` also the
-    outputs of its 2-D matrix products. ``chunk`` is the attention's KV
-    block size."""
-    _require_ported(cfg)
+    With ``remat`` and grad mode on, each dense, vlm or moe block, each
+    encoder and decoder layer and each Mamba2 block runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    dropped and recomputed in the backward, so its forward (B6, the
+    attention, the MoE dispatch) runs twice a step; a moe block's aux
+    leaves the checkpoint beside x, as a tuple output. The hybrid's shared
+    block is not checkpointed (``lm.py:196-208`` of the JAX package).
+    ``remat_policy`` ``"nothing"`` keeps only each block's input, ``"dots"``
+    also the outputs of its 2-D matrix products. ``chunk`` is the
+    attention's KV block size."""
     if remat_policy not in ("nothing", "dots"):
         raise ValueError(f"remat_policy must be 'nothing' or 'dots', got {remat_policy!r}")
-    x = _embed(model, tokens, dtype)
     ckpt = remat and torch.is_grad_enabled()
     kw = {}
     if remat_policy == "dots":
         kw["context_fn"] = lambda: create_selective_checkpoint_contexts(_dots_policy)
 
-    def run(layer, x):
+    def run(layer, x, extra=None):
         if not ckpt:
-            return _block(layer, x, cfg, chunk)
-        return checkpoint(_block, layer, x, cfg, chunk, use_reentrant=False, **kw)
+            return _block(layer, x, cfg, chunk, extra)
+        return checkpoint(_block, layer, x, cfg, chunk, extra, use_reentrant=False, **kw)
 
+    if cfg.family == "encdec":
+        enc_out = _enc_inputs(model, cfg, frames, dtype)
+        for layer in model.enc_layers:
+            enc_out = run(layer, enc_out)
+        x = _dec_inputs(model, tokens, dtype)
+        for layer in model.dec_layers:
+            x = run(layer, x, enc_out)
+        return _head(model, _norm(model.enc_norm_f, x, cfg)), 0.0
+    x = _embed(model, tokens, dtype)
+    pos3 = None
+    if cfg.family == "vlm":
+        x, pos3 = _vlm_inputs(cfg, x, patch_embeds, dtype)
     aux_total = 0.0
     if cfg.family == "hybrid":
         for group in model.layers:
@@ -285,8 +438,10 @@ def forward(model: _LM, cfg, tokens, *, remat: bool = True, remat_policy: str = 
             aux_total = aux_total + aux
     else:
         for layer in model.layers:
-            x = run(layer, x)
+            x = run(layer, x, pos3)
     x = rmsnorm(x, model.norm_f, cfg.norm_eps)
+    if cfg.family == "vlm":
+        x = x[:, -tokens.shape[1]:]
     return _head(model, x), aux_total
 
 
@@ -300,20 +455,23 @@ def init_cache(cfg, batch: int, max_len: int, dtype=BF16, device="cuda") -> dict
 
     * ssm: ``{"ssm"}``, each layer's conv tails and SSM state stacked on a
       leading L axis (f32, as the JAX package makes it);
-    * dense and moe: ``{"k", "v"}``, (L, batch, max_len, KV, Dh) in
+    * dense, vlm and moe: ``{"k", "v"}``, (L, batch, max_len, KV, Dh) in
       ``dtype``;
+    * encdec: ``{"k", "v", "xk", "xv"}``, the decoder's self attention and
+      its cross attention's encoder keys and values, each (L, batch,
+      max_len, KV, Dh) in ``dtype``;
     * hybrid: ``{"ssm"}`` stacked on (groups, attn_every) and ``{"k", "v"}``
       of the shared block, (groups, batch, max_len, KV, Dh).
 
     ``max_len`` and ``dtype`` are unused by the SSM family, whose state has
     constant size."""
-    _require_ported(cfg)
     dev = resolve_device(device)
     if cfg.family == "ssm":
         return {"ssm": _stacked_state(cfg, (cfg.n_layers,), batch, dev)}
     n = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
     shape = (n, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    cache = {"k": torch.zeros(shape, dtype=dtype, device=dev), "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    keys = ("k", "v", "xk", "xv") if cfg.family == "encdec" else ("k", "v")
+    cache = {k: torch.zeros(shape, dtype=dtype, device=dev) for k in keys}
     if cfg.family == "hybrid":
         cache["ssm"] = _stacked_state(cfg, (n, cfg.attn_every), batch, dev)
     return cache
@@ -334,12 +492,19 @@ def decode_step(model: _LM, cfg, token, cache, cur_index: int, *, dtype=BF16):
     layers' new states, and the new K and V at ``cur_index`` (tokens
     already in the cache; unused by the SSM family), into ``cache``'s own
     tensors and returns it: serving keeps one cache and allocates no new
-    one a step."""
-    _require_ported(cfg)
+    one a step. As in the JAX package, the vlm family's M-RoPE position is
+    ``cur_index`` on all three streams, and the encdec family's cross
+    attention reads every ``xk`` / ``xv`` slot."""
     x = _embed(model, token, dtype)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family == "encdec":
+        x = x + model.pos_emb_dec[cur_index].to(dtype)
+        for i, layer in enumerate(model.dec_layers):
+            x = layer.decode(x, cfg, cache, i, cur_index)
+        return _head(model, _norm(model.enc_norm_f, x, cfg)), cache
+    if cfg.family in ("dense", "vlm", "moe"):
+        pos3 = torch.full((x.shape[0], 3, 1), cur_index, device=x.device) if cfg.mrope else None
         for i, layer in enumerate(model.layers):
-            x = layer.decode(x, cfg, cache["k"][i], cache["v"][i], cur_index)
+            x = layer.decode(x, cfg, cache["k"][i], cache["v"][i], cur_index, positions3=pos3)
     else:
         sc = cache["ssm"]
         hybrid = cfg.family == "hybrid"
@@ -358,21 +523,55 @@ def decode_step(model: _LM, cfg, token, cache, cur_index: int, *, dtype=BF16):
     return _head(model, x), cache
 
 
+def _padded(parts: list, max_len: int) -> torch.Tensor:
+    """The layers' (B, n, KV, Dh) tensors stacked as (L, B, max_len, KV, Dh),
+    zeros after position n."""
+    t0 = parts[0]
+    buf = torch.zeros((len(parts), t0.shape[0], max_len) + t0.shape[2:], dtype=t0.dtype, device=t0.device)
+    buf[:, :, :t0.shape[1]] = torch.stack(parts)
+    return buf
+
+
 @torch.no_grad()
-def prefill(model: _LM, cfg, tokens, max_len: Optional[int] = None, *, chunk: int = 1024, dtype=BF16):
+def prefill(model: _LM, cfg, tokens, max_len: Optional[int] = None, *, patch_embeds=None, frames=None,
+            chunk: int = 1024, dtype=BF16):
     """Process whole prompts (B, S): returns (last-token logits (B, 1, V),
     cache). The cache holds each Mamba2 layer's final recurrent state and
-    the attention's K and V (after RoPE, in the compute dtype) at positions
-    0..S-1 of ``max_len`` (default S) slots, zeros after, so decode goes on
-    in place."""
-    _require_ported(cfg)
+    the attention's K and V (after the rotation, in the compute dtype) at
+    positions 0..n-1 of ``max_len`` (default n) slots, zeros after, so
+    decode goes on in place: n is S, the vlm family's S_img + S (its
+    ``patch_embeds`` first), and for the encdec family's ``xk`` / ``xv``
+    (the cross attention's keys and values of its ``frames``) the T frames.
+    A prefill longer than ``max_len`` raises ``ValueError`` (the JAX
+    package fails to pad it)."""
     B, S_ = tokens.shape
-    max_len = S_ if max_len is None else max_len
     x = _embed(model, tokens, dtype)
-    states, kvs = [], []
-    if cfg.family in ("dense", "moe"):
+    states, kvs, pos3 = [], [], None
+    if cfg.family == "vlm":
+        x, pos3 = _vlm_inputs(cfg, x, patch_embeds, dtype)
+    T = None
+    if cfg.family == "encdec":
+        enc_out = _enc_inputs(model, cfg, frames, dtype)
+        T = enc_out.shape[1]
+    n = x.shape[1] if T is None else max(S_, T)
+    max_len = n if max_len is None else max_len
+    if cfg.family != "ssm" and n > max_len:
+        what = {"vlm": f"{n - S_} image patches and {S_} tokens", "encdec": f"{S_} tokens and {T} frames"}
+        raise ValueError(f"{cfg.name}: a prefill of {what.get(cfg.family, f'{S_} tokens')} "
+                         f"does not fit a cache of max_len {max_len}")
+    if cfg.family == "encdec":
+        for layer in model.enc_layers:
+            enc_out = layer(enc_out, cfg, chunk)
+        x = _dec_inputs(model, tokens, dtype)
+        for layer in model.dec_layers:
+            x, kv = layer(x, cfg, chunk, enc_out, collect_kv=True)
+            kvs.append(kv)
+        x = _norm(model.enc_norm_f, x, cfg)
+        cache = {name: _padded([kv[j] for kv in kvs], max_len) for j, name in enumerate(("k", "v", "xk", "xv"))}
+        return _head(model, x[:, -1:]), cache
+    if cfg.family in ("dense", "vlm", "moe"):
         for layer in model.layers:
-            out = layer(x, cfg, chunk, collect_kv=True)  # (x, kv), or the moe block's (x, aux, kv)
+            out = layer(x, cfg, chunk, collect_kv=True, positions3=pos3)  # (x, kv), or the moe block's (x, aux, kv)
             x = out[0]
             kvs.append(out[-1])
     else:
@@ -391,13 +590,10 @@ def prefill(model: _LM, cfg, tokens, max_len: Optional[int] = None, *, chunk: in
         cache["ssm"] = {k: torch.stack([st[k] for st in states]).view(*lead, *states[0][k].shape)
                         for k in states[0]}
     if kvs:
-        k0 = kvs[0][0]
-        for name, part in (("k", 0), ("v", 1)):
-            buf = torch.zeros((len(kvs), B, max_len) + k0.shape[2:], dtype=k0.dtype, device=k0.device)
-            buf[:, :, :S_] = torch.stack([kv[part] for kv in kvs])
-            cache[name] = buf
+        cache.update({name: _padded([kv[j] for kv in kvs], max_len) for j, name in enumerate(("k", "v"))})
     return _head(model, x[:, -1:]), cache
 
 
-__all__ = ["MODELS", "Mamba2Block", "AttnBlock", "MoEBlock", "Mamba2LM", "DenseLM", "MoELM", "HybridLM", "init_params",
-           "forward", "init_cache", "decode_step", "prefill"]
+__all__ = ["MODELS", "Mamba2Block", "AttnBlock", "MoEBlock", "EncLayer", "DecLayer", "Mamba2LM", "DenseLM",
+           "VlmLM", "MoELM", "HybridLM", "EncDecLM", "init_params", "forward", "init_cache", "decode_step",
+           "prefill"]

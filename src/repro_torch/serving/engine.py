@@ -109,11 +109,11 @@ class ServeConfig:
 
 
 class ServingEngine:
-    """Padded-slot prefill + decode loop over one model of any ported
-    family (``lm.init_params``: ssm, dense, moe or hybrid; it builds on ``cuda``
-    unless asked for the CPU), on the device of its parameters. The
-    prompts are left-padded into their slots; the pad positions are valid
-    attention keys, as in the JAX package.
+    """Padded-slot prefill + decode loop over one model of any family
+    (``lm.init_params``: ssm, dense, vlm, moe, hybrid or encdec; it builds
+    on ``cuda`` unless asked for the CPU), on the device of its
+    parameters. The prompts are left-padded into their slots; the pad
+    positions are valid attention keys, as in the JAX package.
 
     Each engine owns its own :class:`ServeConfig` (``sc=None`` constructs a
     per-instance default — a shared default instance would alias sampling
@@ -139,11 +139,20 @@ class ServingEngine:
         return nxt.to(torch.int32)
 
     @torch.no_grad()
-    def generate(self, prompts: list[np.ndarray]) -> list[np.ndarray]:
+    def generate(self, prompts: list[np.ndarray], frames=None) -> list[np.ndarray]:
         """prompts: list of int32 token arrays (longer than ``max_prompt``
         keeps the first ``max_prompt`` tokens — prefix truncation, matching
         ``prompts_from_store``). Returns ``max_new`` tokens per prompt,
-        copied to the host once at the end."""
+        copied to the host once at the end.
+
+        ``frames`` (B, T, d_model; host array or tensor) are the encdec
+        family's encoder input and the vlm family's patch embeddings; by
+        default zeros of (B, max_prompt, d_model) in f32, as in the JAX
+        package. The cache holds ``max_prompt + max_new + 1`` slots, so a
+        vlm prefill of T patches and ``max_prompt`` tokens must fit it, and
+        the encdec family's T frames too (else ``ValueError``). Decode
+        steps go on at position ``max_prompt + t`` whatever the prefix
+        held, as the JAX package's loop does."""
         B = len(prompts)
         if B == 0:
             return []
@@ -153,8 +162,14 @@ class ServingEngine:
             p = p[:P]
             toks[i, -len(p):] = p  # left-pad (keeps last token at P-1)
         max_len = P + self.sc.max_new + 1
+        kw = {}
+        if self.cfg.family in ("encdec", "vlm"):
+            if frames is None:
+                frames = torch.zeros((B, P, self.cfg.d_model), dtype=torch.float32, device=self.device)
+            key = "frames" if self.cfg.family == "encdec" else "patch_embeds"
+            kw[key] = torch.as_tensor(frames, device=self.device)
         tok = torch.as_tensor(toks, dtype=torch.int64, device=self.device)
-        logits, cache = lm.prefill(self.model, self.cfg, tok, max_len)
+        logits, cache = lm.prefill(self.model, self.cfg, tok, max_len, **kw)
         gen = torch.Generator(device=self.device).manual_seed(self.sc.seed)
         cur = self._sample(logits[:, -1].float(), gen)[:, None]
         outs = [cur]

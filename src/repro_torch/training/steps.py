@@ -41,16 +41,20 @@ class TrainOptions:
 
 def loss_fn(model, cfg, batch: dict, opts: TrainOptions):
     """(loss + aux_coeff·aux, {"loss", "aux"}) of ``batch`` (tokens,
-    labels and an optional loss_mask, as tensors on the model's device)."""
-    extra = [k for k in ("patch_embeds", "frames") if k in batch]
-    if extra:
-        raise NotImplementedError(
-            f"batch inputs {extra} belong to the vlm / encdec families, which come with "
-            "ROADMAP Queue A, slice 6b part 3")
+    labels and an optional loss_mask, and the vlm family's patch_embeds or
+    the encdec family's frames, as tensors on the model's device)."""
+    extra = {k: batch[k] for k in ("patch_embeds", "frames") if k in batch}
     logits, aux = lm.forward(model, cfg, batch["tokens"], remat=opts.remat,
-                             remat_policy=opts.remat_policy, chunk=opts.chunk)
+                             remat_policy=opts.remat_policy, chunk=opts.chunk, **extra)
     loss = softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
     return loss + opts.aux_coeff * aux, {"loss": loss, "aux": aux}
+
+
+def _grad(loss, leaves: list) -> list:
+    """d loss / d leaf, zeros for a leaf the loss does not reach (the encdec
+    family's ``norm_f``), as ``jax.grad`` gives them."""
+    gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for g, p in zip(gs, leaves)]
 
 
 def _grads(model, cfg, batch: dict, opts: TrainOptions):
@@ -68,22 +72,23 @@ def _grads(model, cfg, batch: dict, opts: TrainOptions):
         for i in range(mb):
             part = {k: v.reshape(mb, B // mb, *v.shape[1:])[i] for k, v in batch.items()}
             loss, _m = loss_fn(model, cfg, part, opts)
-            grads = torch.autograd.grad(loss, leaves)
+            grads = _grad(loss, leaves)
             torch._foreach_add_(g_acc, [g.to(F32) for g in grads])
             l_acc = l_acc + loss.detach()
         g = dict(zip(params, torch._foreach_div(g_acc, mb)))
         return l_acc / mb, {"loss": l_acc / mb}, g
     loss, metrics = loss_fn(model, cfg, batch, opts)
-    grads = torch.autograd.grad(loss, leaves)
+    grads = _grad(loss, leaves)
     metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in metrics.items()}
     return loss.detach(), metrics, {k: g.to(F32) for k, g in zip(params, grads)}
 
 
 def _stacked(name: str) -> str:
     """The JAX package's leaf of a parameter: ``layers.<i>.k`` and the
-    hybrid's ``layers.<g>.<j>.k`` -> ``layers.k``; ``shared_attn.*`` and the
-    rest are leaves of their own."""
-    return re.sub(r"^layers\.\d+\.(?:\d+\.)?", "layers.", name)
+    hybrid's ``layers.<g>.<j>.k`` -> ``layers.k`` (``enc_layers.<i>.k`` ->
+    ``enc_layers.k``, ``dec_layers.<i>.k`` -> ``dec_layers.k``);
+    ``shared_attn.*`` and the rest are leaves of their own."""
+    return re.sub(r"^((?:enc_|dec_)?layers)\.\d+\.(?:\d+\.)?", r"\1.", name)
 
 
 def _compress_grads(g: dict, how: Optional[str], ef: Optional[dict] = None):

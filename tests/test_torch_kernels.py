@@ -31,6 +31,11 @@ The MoE layer and the moe family (deepseek-moe-16b at full width) against
 the CPU, and the layer's determinism and host-sync freedom:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_kernels.py -k moe
+
+The vlm and encdec families (qwen2-vl-72b and whisper-small, 1-layer cuts
+at full width) against the CPU:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_kernels.py -k vlm_encdec
 """
 
 import dataclasses
@@ -946,6 +951,71 @@ def test_moe_prefill_and_decode_on_card_match_cpu(cuda):
         print("routing agreed", stats)
         for ours, cpu in zip(outs[1], outs[0]):
             torch.testing.assert_close(ours.cpu().float(), cpu.float(), rtol=1e-3, atol=1e-3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+
+
+# ------------------------------- the vlm and encdec families (1-layer cuts)
+@pytest.mark.parametrize("arch,n_extra", [("qwen2-vl-72b", 16), ("whisper-small", 64)])
+def test_vlm_encdec_prefill_and_decode_on_card_match_cpu(cuda, arch, n_extra):
+    """A 1-layer cut at full width (whisper-small: one encoder and one
+    decoder layer): f32 prefill of 2 x 96 tokens (qwen2-vl after 16
+    patches, M-RoPE on a 4 x 4 grid; whisper with 64 frames, the full
+    cross attention) into 120 slots and four decode steps (TF32 off),
+    logits and every cache tensor (k, v; whisper's xk, xv) within 1e-3 of
+    the CPU's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+
+    from family_cases import family_inputs
+    from train_cases import cut_models
+
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cut, m_dev, m_cpu = cut_models(get_arch(arch), 1, cuda, seed=3)
+        toks = torch.as_tensor(np.random.default_rng(4).integers(0, cut.vocab, (2, 100)))
+        extra = family_inputs(cut, 2, n_extra, seed=5)
+        start = 96 + (n_extra if cut.family == "vlm" else 0)
+        outs = []
+        for m, dev in ((m_dev, cuda), (m_cpu, "cpu")):
+            lg, cache = lm.prefill(m, cut, toks[:, :96].to(dev), 120, dtype=torch.float32,
+                                   **{k: v.to(dev) for k, v in extra.items()})
+            got = [lg]
+            for t in range(4):
+                lg, cache = lm.decode_step(m, cut, toks[:, 96 + t:97 + t].to(dev), cache, start + t,
+                                           dtype=torch.float32)
+                got.append(lg)
+            outs.append(got + [cache[k] for k in sorted(cache)])
+        for a, b in zip(*outs):
+            torch.testing.assert_close(a.cpu().float(), b.float(), rtol=1e-3, atol=1e-3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "whisper-small"])
+def test_vlm_encdec_train_step_on_card_matches_cpu(cuda, arch):
+    """One train step of a full-width 1-layer cut (2 x 128: qwen2-vl's 32
+    patches and 96 tokens, whisper's 128 frames and 128 tokens; remat on,
+    f32 activations, TF32 off) on the card against the CPU, launching no
+    kernel and no plain version: whisper's whole step within
+    tests/train_cases.py's bounds (``compare_step``), qwen2-vl's loss and
+    gradients (``compare_grads``: two f32 train states of its cut with
+    AdamW's moments, ~54 GB each, do not fit the host)."""
+    from repro_torch.configs import get_arch
+
+    from train_cases import compare_grads, compare_step, cut_batch, cut_models, grads_of, one_step
+
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cut, m_dev, m_cpu = cut_models(get_arch(arch), 1, cuda, seed=1)
+        batch = cut_batch(cut, 2, 128, seed=2)
+        step, compare = (grads_of, compare_grads) if cut.family == "vlm" else (one_step, compare_step)
+        DT.reset_trace_counts()
+        card = step(cut, m_dev, batch, cuda)
+        assert DT.trace_counts() == {}
+        print(compare(card, step(cut, m_cpu, batch, "cpu"), cuda))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = was
 

@@ -235,19 +235,6 @@ def test_weight_casts_are_kept_and_refreshed(models):
     assert mixer.params(torch.bfloat16)["in_x"].requires_grad  # grad mode: a fresh, tracked cast
 
 
-@pytest.mark.parametrize("arch", sorted(a for a, c in ARCHS.items() if c.family not in lm.MODELS))
-def test_other_families_raise(arch):
-    """vlm and encdec are not ported: the entry points raise naming slice
-    6b part 3."""
-    cfg = ARCHS[arch].reduced()
-    with pytest.raises(NotImplementedError, match="slice 6b part 3"):
-        lm.init_params(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="slice 6b part 3"):
-        lm.init_cache(cfg, batch=1, max_len=8)
-    with pytest.raises(NotImplementedError, match="slice 6b part 3"):
-        lm_params_from_reference(cfg, {})
-
-
 # ------------------------------------------ the dense, moe and hybrid families
 FAMILY_ARCHS = ["qwen2-1.5b", "yi-9b", "yi-34b", "minitron-8b", "deepseek-moe-16b", "zamba2-2.7b"]
 MOE_AUX_TOL = {"f32": 1e-5, "bf16": 1e-3}

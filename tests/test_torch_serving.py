@@ -376,13 +376,16 @@ def test_generate_through_both_servers_matches_reference(arch, monkeypatch):
 
 def test_launch_serve_runs_on_the_cpu_and_names_slice_6b(capsys):
     """The launcher serves mamba2-370m, qwen2-1.5b (dense),
-    deepseek-moe-16b (moe) and zamba2-2.7b (hybrid) reduced on the CPU; an
-    encdec configuration raises, naming slice 6b part 3."""
+    deepseek-moe-16b (moe), zamba2-2.7b (hybrid) and, since slice 6b part
+    3, whisper-small (encdec: the engine's default zero frames) reduced on
+    the CPU. qwen2-vl-72b (vlm) raises the reference's own failure (R1):
+    its default zero patches and its prompts do not fit the cache, and the
+    generate requests fail with ValueError, as in the JAX package."""
     from repro_torch.launch import serve
 
-    for arch in ("mamba2-370m", "qwen2-1.5b", "deepseek-moe-16b", "zamba2-2.7b"):
+    for arch in ("mamba2-370m", "qwen2-1.5b", "deepseek-moe-16b", "zamba2-2.7b", "whisper-small"):
         serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests", "2", "--max-new", "4"])
         out = capsys.readouterr().out
         assert "served 4 mixed requests (2 generate / 8 tokens, 2 reads)" in out and "req/s on cpu" in out, arch
-    with pytest.raises(NotImplementedError, match="slice 6b part 3"):
-        serve.main(["--arch", "whisper-small", "--smoke", "--device", "cpu"])
+    with pytest.raises(ValueError, match="image patches"):
+        serve.main(["--arch", "qwen2-vl-72b", "--smoke", "--device", "cpu", "--requests", "2", "--max-new", "4"])

@@ -14,6 +14,11 @@ bounds, per leaf of the JAX package's layout (``train_state_to_reference``):
   slope in ĝ is eps/(|ĝ| + eps)², so a gradient error of up to
   τ = 1e-4·max|ĝ| moves p by up to lr·min(2, τ·eps/(|ĝ| + eps)²). Where
   |ĝ| is many eps, that term vanishes; near ĝ = 0 the sign decides.
+
+Where the host cannot hold two f32 train states of a cut (qwen2-vl-72b:
+3.37 B parameters a layer-1 cut, ~54 GB each with AdamW's moments),
+``grads_of`` / ``compare_grads`` hold the loss and each gradient leaf,
+with no AdamW, to the same 1e-4 (relative, and of max|leaf|).
 """
 
 from __future__ import annotations
@@ -49,9 +54,19 @@ def f32_forward():
 
 def cut_batch(cfg, batch: int, seq: int, seed: int) -> dict:
     """(tokens, labels) int32 from a seeded numpy draw, as the pipeline
-    yields them."""
-    t = np.random.default_rng(seed).integers(0, cfg.vocab, (batch, seq + 1)).astype(np.int32)
-    return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+    yields them; the vlm family's ``seq`` is split as the JAX package's
+    specs split it, int(seq·img_frac) patch embeddings and the rest tokens,
+    and the encdec family takes ``seq`` frames beside ``seq`` tokens (f32
+    standard normal draws)."""
+    r = np.random.default_rng(seed)
+    n_img = int(seq * cfg.img_frac) if cfg.family == "vlm" else 0
+    t = r.integers(0, cfg.vocab, (batch, seq - n_img + 1)).astype(np.int32)
+    out = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+    if cfg.family == "vlm":
+        out["patch_embeds"] = r.standard_normal((batch, n_img, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        out["frames"] = r.standard_normal((batch, seq, cfg.d_model)).astype(np.float32)
+    return out
 
 
 def one_step(cfg, model, batch: dict, dev) -> tuple[dict, dict]:
@@ -100,9 +115,37 @@ def compare_step(card: tuple[dict, dict], cpu: tuple[dict, dict], dev="cpu") -> 
     return out
 
 
+def grads_of(cfg, model, batch: dict, dev) -> tuple[float, dict]:
+    """The loss and every parameter's gradient (a dict by name, on ``dev``)
+    of ``batch`` on ``dev``, as ``make_train_step`` takes them (remat on,
+    f32 activations), with no optimizer."""
+    with f32_forward():
+        loss, _m, g = TS._grads(model, cfg, {k: torch.as_tensor(v).to(dev) for k, v in batch.items()},
+                                TS.TrainOptions(adamw=ADAMW))
+    return float(loss), g
+
+
+def compare_grads(card: tuple[float, dict], cpu: tuple[float, dict], dev="cpu") -> dict:
+    """Hold the card's loss and gradients against the CPU's: the loss within
+    1e-4 relative, each leaf within 1e-4·max|leaf| (compared on ``dev``);
+    returns the errors, raises AssertionError past a bound."""
+    (lc, gc), (lp, gp) = card, cpu
+    assert abs(lc - lp) <= TOL * abs(lp), (lc, lp)
+    assert sorted(gc) == sorted(gp)
+    worst = {}
+    for k in gp:
+        a, b = gc[k].to(dev), gp[k].to(dev)
+        top = float(b.abs().max())
+        err = float((a - b).abs().max())
+        worst[k] = err / max(top, 1e-30)
+        assert err <= TOL * top, f"{k}: max err {err} > {TOL} x {top}"
+    return {"tol": TOL, "loss": [lc, lp], "max_rel_err_by_leaf": dict(sorted(worst.items(), key=lambda kv: -kv[1])[:6])}
+
+
 def cut_models(cfg, layers: int, dev, seed: int):
-    """A ``layers``-deep cut of ``cfg`` at full width on ``dev`` and a copy
-    of it, the same weights, on the CPU."""
-    cut = dataclasses.replace(cfg, n_layers=layers)
+    """A ``layers``-deep cut of ``cfg`` at full width on ``dev`` (the
+    encdec family's encoder cut to ``layers`` too) and a copy of it, the
+    same weights, on the CPU."""
+    cut = dataclasses.replace(cfg, n_layers=layers, **({"n_enc_layers": layers} if cfg.family == "encdec" else {}))
     m_dev = lm.init_params(torch.Generator(device=dev).manual_seed(seed), cut, device=dev)
     return cut, m_dev, copy.deepcopy(m_dev).to("cpu")
