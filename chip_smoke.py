@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: SAGe_Write (batched),
 SAGe_Read, SAGe_ISP (streams, the exact-match filter, the store-backed
-mapper), the LM token pipeline, mamba2-370m serving store-derived prompts,
+mapper), the LM token pipeline, block-sharded SAGe residency and the
+compressed data-parallel step, mamba2-370m serving store-derived prompts,
 the multi-tenant SageServer frontend, the self-healing store (parity
 reconstruction, scrub, repair), mamba2-370m trained on SAGe k-mer tokens
 with checkpoints, and qwen2-1.5b (dense), zamba2-2.7b (hybrid),
@@ -65,6 +66,26 @@ Phases, each printing one JSON line:
            torch.profiler: device time by kernel, the device busy share, the
            host->device copy time that overlapped a kernel, and the
            pipelined stream's stage seconds and overlap_fraction
+  shard    a SageStore on a 2-shard BlockMesh (cuda:0 twice on a machine
+           with one card, two cards when there are) against a one-device
+           store of the Illumina container, on blocks no earlier phase
+           touched: a 256-block window in 2bit / kmer / onehot, two-step
+           and fused=True (a mesh session runs two-step), and a 4-batch
+           SageTokenPipeline k-mer stream, each equal bit for bit (the
+           stream's first batch also to refdec); launch counts from 0 over
+           the sharded runs (B1 a shard a group, B2 and B3 / B4 a shard a
+           read, no B5, no plain call), added to the kernel line; warm
+           read ms of both stores in turns, the lane gather's and the
+           output concatenation's ms. Then a world-size-1 NCCL group
+           (FileStore under build/) and mamba2-370m at full width: 2 steps
+           of make_dp_train_step with int16_ef and 2 with bf16 against 2
+           plain steps from the same seeded weights, on the sharded
+           stream's first 2 batches, each loss within dp_loss_bound, the
+           steps taking turns with launch counts from 0 around each (B6
+           2 x 48 forward and 48 backward a step, no plain call); 4 more
+           warm steps of each kind in turns, timed; the all-reduced bytes
+           a gradient element. Nothing runs on more than one NCCL rank
+           (its line says so)
   encode   batched SAGe_Write on the card of ~33,300 Illumina reads over a
            1 Mbp reference (token_target 65536): bases/s, t_map / t_pack /
            t_verify, launch counts from 0 (DP kernel and B2, no plain
@@ -133,7 +154,8 @@ Phases, each printing one JSON line:
            train shape, forward and forward + backward
   hybrid   zamba2-2.7b at full width (54 Mamba2 layers in 9 groups of 6,
            d_model 2560, one shared attention block of 32 heads of 80):
-           the same serving run (B6 once a Mamba2 layer a decode step), the
+           the same serving run, cut to 24 layers (4 groups; B6 once a
+           Mamba2 layer a decode step), the
            same checks on a cut of one group and the shared block, 3
            training steps on tiles 3200-3201 (B6 forward twice and backward
            once a Mamba2 layer a step; B6 backward's device ms inside the
@@ -204,7 +226,7 @@ try:
     from repro_torch.core.decode_torch import (
         DeviceBlocks,
         _fill_counts,
-        gather_block_arrays,
+        gather_lanes,
         host_to_tensor,
         prepare_device_blocks,
         reset_trace_counts,
@@ -217,6 +239,9 @@ try:
     from repro_torch.core.layout import SageContainerV2, write_v2
     from repro_torch.core.refdec import decode_all, decode_block
     from repro_torch.data import SageTokenPipeline
+    from repro_torch.data.pipeline import Cursor
+    from repro_torch.distributed import BlockMesh
+    from repro_torch.distributed.dp_step import make_dp_train_step
     from repro_torch.genomics.batch_map import _batch_candidates, _traceback_batch
     from repro_torch.genomics.filter_torch import filter_store_blocks
     from repro_torch.genomics.mapper import ReadMapper, map_store_reads
@@ -232,7 +257,8 @@ try:
     from repro_torch.models import moe as MOE
     from repro_torch.serving import SageServer, ServeConfig, ServingEngine, SessionPool, prompts_from_store
     from repro_torch.testing import FaultPlan, corrupt_extents, inject
-    from repro_torch.training import Trainer, TrainerConfig, TrainOptions, init_train_state
+    from repro_torch.training import Trainer, TrainerConfig, TrainOptions, init_train_state, make_train_step
+    from repro_torch.training.steps import _stacked
     from repro_torch.training.optimizer import AdamWConfig
 
     sys.path.insert(0, str(ROOT / "tests"))
@@ -305,7 +331,8 @@ TRAIN = dict(first_tile=3072, tiles=2, batch=8, seq=512, steps=8, ckpt_at=4, see
              cut_layers=2, cut_batch=2, resume_rtol=1e-3)
 # the dense, hybrid and moe phases: qwen2-1.5b, zamba2-2.7b and
 # deepseek-moe-16b at full width, weights from a seeded generator on the
-# card. Each serves 8 prompts from an Illumina block of a store of its own
+# card (zamba2 serves 24 of its 54 layers, 4 of its 9 groups, which pays
+# for the shard phase; it trains all 54). Each serves 8 prompts from an Illumina block of a store of its own
 # (512-token slots, 64 new tokens) and trains on 8 x 512 k-mer tokens a step
 # from two tiles of the Illumina layout no earlier phase touched (qwen2 tiles
 # 3100-3101, blocks 24800-24815; zamba2 tiles 3200-3201, blocks 25600-25615;
@@ -332,7 +359,7 @@ FAMILY = {
     "dense": dict(arch="qwen2-1.5b", seed=11, prompt_block=26624, first_tile=3100, steps=4, cut_layers=4,
                   train_cut_layers=2),
     "hybrid": dict(arch="zamba2-2.7b", seed=12, prompt_block=26656, first_tile=3200, steps=3, cut_layers=6,
-                   train_cut_layers=6),
+                   train_cut_layers=6, serve_layers=24),
     "moe": dict(arch="deepseek-moe-16b", seed=13, prompt_block=26688, first_tile=3300, steps=3, cut_layers=2,
                 train_cut_layers=1, serve_layers=16, train_layers=4),
     "vlm": dict(arch="qwen2-vl-72b", seed=14, prompt_block=26720, first_tile=3402, steps=3, cut_layers=1,
@@ -349,6 +376,15 @@ BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (bf16 products, 
 # plain gradient's largest value): f32 sums of up to Q·N products in
 # another order; dx in bf16 within one bf16 ulp
 B6_BWD_TOL = {"f32": (1e-5, 1e-5), "dx_bf16": (8e-3, 1e-5)}
+# the shard phase: block-sharded residency over a 2-shard BlockMesh (two cards
+# when the machine has them, else cuda:0 twice) on blocks no earlier phase
+# touched (reads of 12288-12543, a token stream from block 12544), against a
+# one-device store of the same container; then mamba2-370m at full width,
+# 2 steps of make_dp_train_step (int16_ef, then bf16) on a world-size-1 NCCL
+# group against 2 steps of the plain make_train_step from the same weights,
+# on the sharded stream's 8 x 512 k-mer batches
+SHARD = dict(shards=2, read=12288, stream_start=12544, stream_batches=4, warm_reads=5, dp_steps=2, dp_warm=4,
+             batch=8, seq=512, seed=21, lr=2e-3, warmup=2)
 WORK = ROOT / "build" / "smoke_data"
 
 
@@ -1492,6 +1528,249 @@ def attention_yardstick(cfg, dev, seed: int, causal: bool = True) -> dict:
             "fwd_bwd": {"ms": fb_ms, "sdpa_ms": cuda_ms(sdpa_fb, it)[0], "bound_ms": b_fb, "bound_by": by_fb}}
 
 
+def dp_loss_bound(plain: dict, m1: dict, qmax) -> tuple[list, float]:
+    """The bound on |loss_dp - loss_plain| at each of SHARD's DP steps.
+
+    Step 1 runs the same forward on the same weights: equal within 1e-6
+    relative. After it, the weights differ only where the compressed mean
+    gradient moved AdamW's first update, lr_1·ĝ/(|ĝ| + eps), which depends
+    on ĝ through its sign alone away from eps. int16_ef rounds each element
+    to a step s = max|g|/qmax of its JAX leaf, so it zeroes (and drops the
+    update of) exactly the elements with |g| <= s/2; the first-order loss
+    change that those updates carried is at most A = lr_1·Σ|g| over them,
+    g the unclipped gradient (|m| / (1 - b1) after the plain step 1,
+    divided by its clip factor). bf16 keeps every sign and drops nothing:
+    A = 0. So step t differs by at most 2·(t - 1)·A, plus 1e-4 of the
+    loss for the bf16 forward's rounding on the moved weights. ``qmax``
+    None is bf16. Returns (the bounds, A)."""
+    c = AdamWConfig()
+    lr1, gn1 = plain["lr"][0], plain["grad_norm"][0]
+    clip = min(1.0, c.grad_clip / max(gn1, 1e-9))
+    a = 0.0
+    if qmax is not None:
+        groups: dict = {}
+        for k, m in m1.items():
+            groups.setdefault(_stacked(k), []).append(m.abs().float() / (1 - c.b1))
+        for gs in groups.values():
+            half = max(float(g.max()) for g in gs) / qmax / 2
+            a += sum(float(g[g <= half].sum()) for g in gs)
+        a *= lr1 / clip
+    losses = plain["losses"]
+    return [1e-6 * abs(losses[0])] + [2 * t * a + 1e-4 * abs(lt) for t, lt in enumerate(losses[1:], 1)], a
+
+
+def shard_phase(dev, cfg, oracle: "Oracle") -> dict:
+    """SAGe across block shards at full width, and the DP step at one NCCL
+    rank (SHARD): a SageStore on a 2-shard BlockMesh against a one-device
+    store of the Illumina container. A 256-block window read in 2bit, kmer
+    and onehot, two-step and fused=True (a mesh session runs two-step), and
+    a SageTokenPipeline k-mer stream, each equal bit for bit to the
+    one-device store's; launch counts from 0 over the sharded runs (B1 a
+    shard a group upload, B2 and B3 / B4 a shard a read, no B5, no plain
+    call); warm kmer read ms of both stores in turns, and the lane gather's
+    and the output concatenation's ms. Then a world-size-1 NCCL group (a
+    FileStore under WORK) and mamba2-370m at full width: 2 steps of
+    make_dp_train_step with int16_ef and 2 with bf16 against 2 steps of the
+    plain make_train_step from the same seeded weights, on the sharded
+    stream's first 2 batches, each loss within ``dp_loss_bound``, and the
+    plain steps again (the same losses), all four taking turns; launch
+    counts from 0 around each of those steps (B6 forward twice a layer,
+    backward once, no plain call); then ``dp_warm`` more steps of plain,
+    int16_ef and bf16 in turns (the order reversed every round), timed,
+    and the all-reduced bytes a gradient element. Nothing runs on more
+    than one NCCL rank. Returns the launches per kernel."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    sh = SHARD
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    devs = [torch.device("cuda", i % n_cards) for i in range(sh["shards"])] if n_cards >= sh["shards"] \
+        else [torch.device("cuda", 0)] * sh["shards"]
+    mesh = BlockMesh(devs)
+    path = str(WORK / "illumina.sage2")
+    one = SageStore(max_prepared=16, group_blocks=GROUP)
+    sharded = SageStore(max_prepared=16, group_blocks=GROUP, mesh=mesh)
+    for st in (one, sharded):
+        st.register("illumina", path)
+    rng = (sh["read"], sh["read"] + BUCKET)
+    k = pick_k(cfg.vocab)
+
+    def stream(store):
+        pl = SageTokenPipeline("illumina", vocab_size=cfg.vocab, batch=sh["batch"], seq_len=sh["seq"], store=store,
+                               stream_mode="pipelined", cursor=Cursor(block=sh["stream_start"]))
+        it = pl.batches()
+        got = [next(it) for _ in range(sh["stream_batches"])]
+        pl.close()
+        return got
+
+    want = {(fmt, fused): one.session(fused=fused).read("illumina", rng, fmt, kmer_k=KMER_K)
+            for fused in (False, True) for fmt in FMTS}
+    torch.cuda.synchronize()
+    reset_trace_counts()
+    for (fmt, fused), w in want.items():
+        sess = sharded.session(fused=fused)
+        assert sess.mesh == mesh
+        got = sess.read("illumina", rng, fmt, kmer_k=KMER_K)
+        torch.cuda.synchronize()
+        assert sorted(got) == sorted(w), (fmt, fused, sorted(got), sorted(w))
+        for key in w:
+            if key != "block_ids":
+                assert torch.equal(got[key], w[key]), f"sharded {fmt} read (fused={fused}): {key} differs"
+    read_counts = trace_counts()
+    batches = stream(sharded)
+    torch.cuda.synchronize()
+    counts = trace_counts()
+    want_batches = stream(one)
+    for i, (a, b) in enumerate(zip(batches, want_batches)):
+        assert all(np.array_equal(a[x], b[x]) for x in ("tokens", "labels")), f"sharded stream batch {i}"
+    flat = oracle.kmer_stream(np.arange(sh["stream_start"], sh["stream_start"] + 8), k)
+    need = sh["batch"] * (sh["seq"] + 1)
+    assert np.array_equal(batches[0]["tokens"], flat[:need].reshape(sh["batch"], -1)[:, :-1]), "stream vs refdec"
+    plain = {c: n for c, n in counts.items() if c.startswith("plain:")}
+    assert not plain, f"the sharded path ran plain versions on the card: {plain}"
+    launches = {name: counts.get(f"launch:{name}", 0) for name in ("sage_unpack", "sage_decode", "kmer_pack", "one_hot")}
+    idle = [name for name, n in launches.items() if n == 0]
+    assert not idle and not counts.get("launch:sage_fused"), f"sharded path launches {counts}"
+    reads = 2 * len(FMTS)  # B2 once a shard a read, B3 / B4 once a shard a kmer / onehot read
+    want_reads = {"sage_decode": sh["shards"] * reads, "kmer_pack": 2 * sh["shards"], "one_hot": 2 * sh["shards"]}
+    assert {name: read_counts.get(f"launch:{name}", 0) for name in want_reads} == want_reads, read_counts
+    assert launches["sage_unpack"] == sh["shards"] * sharded.io_stats["group_uploads"], (launches, sharded.io_stats)
+    del want
+
+    # warm kmer reads of both stores, in turns; the lane gathers and the
+    # concatenation onto the first device, timed alone
+    def warm(store):
+        sess = store.session()
+        sess.read("illumina", rng, "kmer", kmer_k=KMER_K)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(sh["warm_reads"]):
+            out = sess.read("illumina", rng, "kmer", kmer_k=KMER_K)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / sh["warm_reads"], out
+
+    read_ms = {"one": [], "sharded": []}
+    for which in ("one", "sharded", "sharded", "one"):
+        ms, out = warm(one if which == "one" else sharded)
+        read_ms[which].append(ms)
+    db, local = sharded.prepared_for("illumina", np.arange(*rng))
+    padded, valid = pad_block_ids(local, mesh.shards)
+    b = padded.size // mesh.shards
+
+    def gathers():
+        return [gather_lanes(db, padded[i * b:(i + 1) * b], d, valid=valid[i * b:(i + 1) * b])
+                for i, d in enumerate(mesh.devices)]
+
+    gathers()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(sh["warm_reads"]):
+        parts = gathers()
+    torch.cuda.synchronize()
+    gather_ms = (time.perf_counter() - t0) * 1e3 / sh["warm_reads"]
+    halves = [{key: v[i * b:(i + 1) * b].to(d) for key, v in out.items() if isinstance(v, torch.Tensor)}
+              for i, d in enumerate(mesh.devices)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(sh["warm_reads"]):
+        cat = {key: torch.cat([h[key].to(mesh.devices[0], non_blocking=True) for h in halves]) for key in halves[0]}
+    torch.cuda.synchronize()
+    concat_ms = (time.perf_counter() - t0) * 1e3 / sh["warm_reads"]
+    sharded_ms = sum(read_ms["sharded"]) / 2
+    del parts, halves, cat, out, db
+    sharded.evict()
+    one.evict()
+    torch.cuda.empty_cache()
+
+    # ---- the DP step at one NCCL rank, mamba2-370m at full width
+    dist.init_process_group("nccl", store=dist.FileStore(str(WORK / "nccl_store"), 1), rank=0, world_size=1)
+    L = cfg.n_layers
+    kinds = ("plain", "int16_ef", "bf16", "plain_again")
+    try:
+        dp_mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        adamw = AdamWConfig(lr=sh["lr"], warmup_steps=sh["warmup"], total_steps=sh["dp_steps"])
+        dp_batches = [{x: torch.from_numpy(bt[x]).to(dev) for x in ("tokens", "labels")}
+                      for bt in batches[:sh["dp_steps"]]]
+        states, runs, b6, m1, wire = {}, {}, {}, {}, {}
+        for kind in kinds:  # every state from the same seed, all resident so the steps can take turns
+            opts = TrainOptions(adamw=adamw, grad_compress="int16_ef" if kind == "int16_ef" else None)
+            model, opt = init_train_state(torch.Generator(device=dev).manual_seed(sh["seed"]), cfg, opts, device=dev)
+            step = make_train_step(cfg, opts) if kind.startswith("plain") else \
+                make_dp_train_step(cfg, opts, dp_mesh, ("data",), compress=kind)
+            states[kind] = [model, opt, step]
+            runs[kind] = {"losses": [], "lr": [], "grad_norm": [], "step_ms": [], "warm_ms": []}
+            b6[kind] = {}
+
+        def take(kind, bt):
+            st = states[kind]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st[0], st[1], met = st[2](st[0], st[1], bt)
+            torch.cuda.synchronize()
+            return met, (time.perf_counter() - t0) * 1e3
+
+        for i, bt in enumerate(dp_batches):  # the checked steps in turns, launch counts from 0 around each
+            for kind in kinds:
+                reset_trace_counts()
+                met, ms = take(kind, bt)
+                for key, n in trace_counts().items():
+                    b6[kind][key] = b6[kind].get(key, 0) + n
+                for key in ("loss", "lr", "grad_norm"):
+                    runs[kind]["losses" if key == "loss" else key].append(float(met[key]))
+                runs[kind]["step_ms"].append(ms)
+                if kind == "plain" and i == 0:
+                    m1 = {name: t.clone() for name, t in states[kind][1]["m"].items()}
+        timed = kinds[:3]
+        for r in range(sh["dp_warm"]):  # more warm steps, timed only, the order reversed every round
+            for kind in (timed if r % 2 == 0 else timed[::-1]):
+                runs[kind]["warm_ms"].append(take(kind, dp_batches[r % len(dp_batches)])[1])
+        for kind in kinds[1:3]:
+            w = states[kind][2].wire
+            wire[kind] = {"bytes": w["bytes"], "elements": w["elements"], "bytes_per_element": w["bytes"] / w["elements"]}
+        del states
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    for kind in kinds:  # every step ran B6 forward twice a layer (remat) and backward once, no plain version
+        n = b6[kind]
+        plain = {c: v for c, v in n.items() if c.startswith("plain:")}
+        assert not plain, f"the {kind} train step ran plain versions on the card: {plain}"
+        got = (n.get("launch:ssd_intra", 0), n.get("launch:ssd_intra_bwd", 0))
+        assert got == (2 * L * sh["dp_steps"], L * sh["dp_steps"]), (kind, n)
+        runs[kind]["b6_launches"] = {"ssd_intra": got[0], "ssd_intra_bwd": got[1]}
+    plain_losses = runs["plain"]["losses"]
+    assert runs["plain_again"]["losses"] == plain_losses, (runs["plain_again"], plain_losses)
+    for kind, qmax in (("int16_ef", 32767), ("bf16", None)):
+        bounds, dropped = dp_loss_bound(runs["plain"], m1, qmax)
+        runs[kind].update(bound=bounds, dropped_first_order=dropped,
+                          err=[abs(a - b) for a, b in zip(runs[kind]["losses"], plain_losses)])
+        assert all(e <= bd for e, bd in zip(runs[kind]["err"], bounds)), (kind, runs[kind], plain_losses)
+        assert all(np.isfinite(runs[kind]["losses"])), runs[kind]
+    for kind in kinds[:3]:  # step 2 and the timed steps are warm
+        warm = [runs[kind]["step_ms"][-1]] + runs[kind]["warm_ms"]
+        runs[kind]["warm_ms_median"] = float(np.median(warm))
+        runs[kind]["warm_ms_range"] = [min(warm), max(warm)]
+    assert 2.0 <= wire["int16_ef"]["bytes_per_element"] < 2.01 and wire["bf16"]["bytes_per_element"] == 2.0, wire
+    del m1
+    torch.cuda.empty_cache()
+    emit("shard", devices=[str(d) for d in mesh.devices], cuda_device_count=n_cards,
+         multi_rank_nccl=False, note="one card: the block shards share cuda:0 when the machine has one card; "
+                                     "the collectives ran on a world-size-1 NCCL group; nothing ran on two ranks",
+         window=list(rng), formats=list(FMTS), fused_session_path="two-step (a mesh session)",
+         bit_identical_to_one_device=True, stream_batches=len(batches),
+         launches=launches, read_launches={name: read_counts.get(f"launch:{name}", 0) for name in launches},
+         group_uploads=sharded.io_stats["group_uploads"],
+         read_ms={"one_device": read_ms["one"], "sharded": read_ms["sharded"]},
+         gather_ms=gather_ms, gather_share=gather_ms / sharded_ms, concat_ms=concat_ms,
+         concat_share=concat_ms / sharded_ms,
+         dp={"arch": LM_ARCH, "world_size": 1, "backend": "nccl", "batch": [sh["batch"], sh["seq"]],
+             "runs": runs, "wire": wire, "qmax": 32767},
+         seconds=time.perf_counter() - t_phase)
+    return {**launches, **{name: sum(runs[kind]["b6_launches"][name] for kind in kinds)
+                           for name in ("ssd_intra", "ssd_intra_bwd")}}
+
+
 def family_phase(dev, kind: str, src: SageFile, oracle: "Oracle") -> dict:
     """A dense (qwen2-1.5b), hybrid (zamba2-2.7b), moe (deepseek-moe-16b),
     vlm (qwen2-vl-72b) or encdec (whisper-small) LM at full width on the
@@ -1721,6 +2000,7 @@ def family_phase(dev, kind: str, src: SageFile, oracle: "Oracle") -> dict:
 
     # (d) training: the Trainer over a fused pipeline on tiles of their own
     cfg = dataclasses.replace(whole, n_layers=spec.get("train_layers", whole.n_layers))
+    n_ssm = cfg.n_layers if cfg.family == "hybrid" else 0  # the trained depth (zamba2 serves fewer layers)
     n_src = src.meta.n_blocks
     data = WORK / f"{kind}_train.sage2"
     write_v2(tile_sage_file(src, run["tiles"], first=spec["first_tile"]), data)
@@ -2013,7 +2293,7 @@ def main() -> None:
                        fixed_len, BUCKET, dev)
     lanes = np.random.default_rng(0).permutation(BUCKET)[: BUCKET * 13 // 16]
     f_ids, f_valid = pad_block_ids(np.concatenate([lanes, lanes[: BUCKET // 16]]))
-    sub = gather_block_arrays(res, f_ids, f_valid)
+    sub = gather_lanes(res, f_ids, res.device, valid=f_valid)
     two = _fill_counts(dict(ops.sage_decode(DeviceBlocks(sub, caps, classes, fixed_len, BUCKET, dev))), sub)
     del sub
     lane_tokens = int(two["n_tokens"].sum())
@@ -2399,12 +2679,17 @@ def main() -> None:
     prof["cold_pipelined_fused_kmer"]["stream_stats_profiled"] = pipe_stats[1]
     emit("profile", **prof)
 
+    # ---- shard: block-sharded residency; the DP step at one NCCL rank -------
+    for name, n in shard_phase(dev, lm_cfg, oracles["illumina"]).items():
+        launches[name] = launches.get(name, 0) + n
+
     # ---- encode: batched SAGe_Write at 1 Mbp; isp: the filter and mapper ---
     launches["align_scan"] = encode_phase(dev)
     isp_phase(ref_ill)
 
     # ---- lm: mamba2-370m at full width serves store-derived prompts --------
-    launches["ssd_intra"], engine = lm_phase(dev, lm_cfg)
+    serve_ssd, engine = lm_phase(dev, lm_cfg)
+    launches["ssd_intra"] += serve_ssd
 
     # ---- serve: the SageServer frontend; heal: the self-healing store -------
     serve_phase(lm_cfg, engine, oracles["illumina"])
@@ -2413,7 +2698,7 @@ def main() -> None:
     heal_phase(src, oracles["illumina"])
 
     # ---- train: mamba2-370m at full width trains on SAGe k-mer tokens -----
-    launches["ssd_intra_bwd"] = train_phase(dev, lm_cfg, src, oracles["illumina"])
+    launches["ssd_intra_bwd"] += train_phase(dev, lm_cfg, src, oracles["illumina"])
 
     # ---- the families: qwen2-1.5b, zamba2-2.7b, deepseek-moe-16b, qwen2-vl-72b, whisper-small --
     for kind in FAMILY:

@@ -15,6 +15,12 @@ A state is a nested dict (sorted keys give the leaves' order, as JAX's tree
 flattening does) whose leaves are numpy arrays or torch tensors. The
 trainer saves the JAX package's layout (``convert.train_state_to_reference``),
 so a checkpoint written by either package restores in the other.
+
+Elastic restore, as the reference's: leaves are stored whole, so a restart
+may use another mesh. Under ``torch.distributed`` every rank calls
+``save``: a DTensor leaf is gathered (``full_tensor()``, a collective),
+rank 0 writes (blocking) and a barrier follows; ``restore(shardings=...)``
+distributes each leaf on the mesh and with the placements it is given.
 """
 
 from __future__ import annotations
@@ -69,8 +75,21 @@ def _treedef(tree) -> str:
 
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
+
+
+def _ranks() -> tuple[int, int]:
+    """(this rank, world size) of the default process group; (0, 1) without one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 class CheckpointManager:
@@ -83,9 +102,12 @@ class CheckpointManager:
     # ----------------------------------------------------------------- save
     def save(self, step: int, state: dict, extra: Optional[dict] = None, block: bool = False) -> None:
         """Snapshot ``state`` at ``step``. The device->host copy is
-        synchronous; file writes happen on a background thread."""
+        synchronous; file writes happen on a background thread. Under a
+        process group of several ranks every rank calls it, rank 0 writes
+        and returns after the others reach a barrier."""
         self.wait()  # one in-flight save at a time
         leaves = [(n, _host(leaf)) for n, leaf in _flatten(state)]
+        rank, world = _ranks()
         treedef = _treedef(state)
 
         def write():
@@ -111,7 +133,13 @@ class CheckpointManager:
             tmp.rename(final)  # atomic publish
             self._gc()
 
-        if block:
+        if world > 1:
+            import torch.distributed as dist
+
+            if rank == 0:
+                write()
+            dist.barrier()
+        elif block:
             write()
         else:
             self._thread = threading.Thread(target=write, daemon=True)
@@ -139,12 +167,15 @@ class CheckpointManager:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, like: dict, step: Optional[int] = None, verify: bool = False):
+    def restore(self, like: dict, step: Optional[int] = None, shardings: Optional[dict] = None,
+                verify: bool = False):
         """Restore into the structure of ``like`` (a nested dict whose leaves
         have ``.shape``: arrays, tensors or :class:`LeafSpec`). Returns (the
         same structure of host numpy arrays, extra, step). ``verify``
         checks every leaf's checksum and raises :class:`IntegrityError` on
-        a mismatch."""
+        a mismatch. ``shardings``: a matching dict whose leaves are
+        ``(DeviceMesh, placements)`` pairs; those leaves come back as
+        DTensors distributed so (elastic resharding onto any mesh)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -163,4 +194,10 @@ class CheckpointManager:
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(f"{name}: checkpoint shape {arr.shape}, expected {tuple(leaf.shape)}")
             out[name] = arr
+        if shardings is not None:
+            from torch.distributed.tensor import distribute_tensor
+
+            for name, (mesh, places) in _flatten(shardings):
+                t = torch.from_numpy(np.ascontiguousarray(out[name])).to(mesh.device_type)
+                out[name] = distribute_tensor(t, mesh, list(places))
         return _unflatten(like, out), manifest["extra"], step

@@ -88,13 +88,20 @@ def bucket_size(n: int) -> int:
     return 1 << (n - 1).bit_length()
 
 
-def pad_block_ids(ids: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+def pad_block_ids(ids: np.ndarray, shards: int = 1) -> tuple[np.ndarray, np.ndarray]:
     """Pad ``ids`` to its power-of-two bucket: returns (padded ids, int32
     validity mask). Pad lanes repeat ``ids[0]`` (any in-bounds block works —
-    the mask makes their decode output deterministic PAD/zeros)."""
+    the mask makes their decode output deterministic PAD/zeros).
+
+    With ``shards > 1`` the bucket is computed per shard and the total pads
+    to ``bucket(ceil(n / shards)) * shards``, so every lane shard of a
+    block-sharded decode holds a power-of-two lane count; ``shards=1`` is
+    the single-device rule."""
     ids = np.asarray(ids, dtype=np.int64)
     n = ids.size
-    b = bucket_size(n)
+    if shards < 1:
+        raise ValueError(f"shards must be >= 1, got {shards}")
+    b = bucket_size(-(-n // shards)) * shards
     padded = np.full(b, ids[0], dtype=np.int64)
     padded[:n] = ids
     valid = (np.arange(b) < n).astype(np.int32)

@@ -34,15 +34,16 @@ from repro_torch.core.blocks import (
     prepare_block_arrays,
 )
 from repro_torch.core.format import D, STREAMS, SageFile
+from repro_torch.distributed.sharding import BlockMesh, block_sharding, indexed_device
 from repro_torch.kernels import cuda_lib
 
 __all__ = [
     "PAD_BASE", "DeviceBlocks", "Uploader", "bucket_size", "decode_block_arrays",
-    "decode_blocks_bucketed", "decode_blocks_padded", "extract_fields",
-    "fused_decode_blocks_bucketed", "fused_format_supported", "gather_block_arrays",
+    "decode_blocks_bucketed", "decode_blocks_sharded", "extract_fields",
+    "fused_decode_blocks_bucketed", "fused_format_supported", "gather_lanes",
     "pad_block_ids", "prepare_device_blocks", "register_format_fuser",
     "reset_trace_counts", "resolve_device", "stream_bits", "trace_counts",
-    "unpack_block_rows",
+    "unpack_block_rows", "uploader_for",
 ]
 
 I32 = torch.int32
@@ -398,6 +399,17 @@ class Uploader:
         return outs
 
 
+def uploader_for(uploaders: dict, device) -> Uploader:
+    """``device``'s :class:`Uploader` in ``uploaders`` (one a device, keyed
+    by the indexed device, shared by a store and its residencies), made on
+    first use."""
+    dev = indexed_device(resolve_device(device))
+    up = uploaders.get(dev)
+    if up is None:
+        up = uploaders[dev] = Uploader(dev)
+    return up
+
+
 @dataclasses.dataclass
 class DeviceBlocks:
     """Fixed-shape, block-major layout of a SageFile.
@@ -406,7 +418,14 @@ class DeviceBlocks:
     :meth:`to` moves every array to a torch device once (uint32 rows as
     int32 bits), after which ranged reads gather and decode with no host
     round trip. ``device`` is None while the arrays are host numpy;
-    ``uploader`` carries the small per-read index arrays to ``device``."""
+    ``uploader`` carries the small per-read index arrays to ``device``.
+
+    Block-sharded residency (``to(mesh=...)``, ``mesh`` set): every
+    ``arrays[k]`` is a list with one tensor a shard, shard ``i`` on
+    ``mesh.devices[i]``, and row ``r`` of the layout is row ``r -
+    shard_offsets()[i]`` of the shard ``i`` whose run holds it. ``device``
+    is the mesh's first device (where reads hand their results back) and
+    ``uploaders`` carries index arrays to each device."""
 
     arrays: dict[str, Any]
     caps: Any
@@ -415,6 +434,8 @@ class DeviceBlocks:
     n_blocks: int
     device: Optional[torch.device] = None
     uploader: Optional[Uploader] = dataclasses.field(default=None, repr=False, compare=False)
+    mesh: Optional[BlockMesh] = None
+    uploaders: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     @property
     def on_device(self) -> bool:
@@ -423,23 +444,64 @@ class DeviceBlocks:
     def block(self, bi: int) -> dict[str, Any]:
         return {k: v[bi] for k, v in self.arrays.items()}
 
-    def upload(self, *arrays) -> list[torch.Tensor]:
-        """Host arrays onto this residency's device (see :class:`Uploader`)."""
-        if self.uploader is None:
-            self.uploader = Uploader(self.device)
-        return self.uploader(*arrays)
+    def upload(self, *arrays, device=None) -> list[torch.Tensor]:
+        """Host arrays onto ``device`` (this residency's device when None;
+        see :class:`Uploader`), one uploader a device."""
+        dev = self.device if device is None else indexed_device(device)
+        if self.uploader is not None and dev == indexed_device(self.device):
+            return self.uploader(*arrays)
+        return uploader_for(self.uploaders, dev)(*arrays)
 
-    def to(self, device, uploader: Optional[Uploader] = None) -> "DeviceBlocks":
+    def shard_offsets(self) -> np.ndarray:
+        """First row of each shard's run (block-sharded residency)."""
+        rows = [t.shape[0] for t in next(iter(self.arrays.values()))]
+        return np.concatenate([[0], np.cumsum(rows)[:-1]]).astype(np.int64)
+
+    def take(self, key: str, rows) -> torch.Tensor:
+        """Rows ``rows`` of array ``key``, on ``device``."""
+        return gather_lanes(self, rows, self.device, keys=(key,))[key]
+
+    def to(self, device=None, uploader: Optional[Uploader] = None, *, mesh: Optional[BlockMesh] = None,
+           uploaders: Optional[dict] = None) -> "DeviceBlocks":
         """Copy on ``device`` (no-op when already there), through
-        ``uploader`` (a new one of ``device`` when None)."""
-        dev = resolve_device(device)
-        if self.device == dev:
+        ``uploader`` (a new one of ``device`` when None).
+
+        With ``mesh`` (the counterpart of ``repro``'s ``to_device(mesh=)``)
+        the leading block axis splits evenly over the mesh's devices: the
+        rows pad with zeros to a multiple of the shard count and shard
+        ``i``'s run of them goes to ``mesh.devices[i]`` (``uploaders``, one
+        :class:`Uploader` a device, is filled as needed)."""
+        if mesh is None:
+            dev = resolve_device(device)
+            if self.device == dev and self.mesh is None:
+                return self
+            if self.mesh is not None:
+                raise ValueError("a block-sharded residency does not move as a whole; re-prepare it")
+            up = uploader if uploader is not None else Uploader(dev)
+            host = [k for k, v in self.arrays.items() if not isinstance(v, torch.Tensor)]
+            uploaded = dict(zip(host, up(*(self.arrays[k] for k in host))))
+            arrays = {k: uploaded[k] if k in uploaded else v.to(dev) for k, v in self.arrays.items()}
+            return dataclasses.replace(self, arrays=arrays, device=dev, uploader=up)
+        if self.mesh == mesh:
             return self
-        up = uploader if uploader is not None else Uploader(dev)
-        host = [k for k, v in self.arrays.items() if not isinstance(v, torch.Tensor)]
-        uploaded = dict(zip(host, up(*(self.arrays[k] for k in host))))
-        arrays = {k: uploaded[k] if k in uploaded else v.to(dev) for k, v in self.arrays.items()}
-        return dataclasses.replace(self, arrays=arrays, device=dev, uploader=up)
+        if self.mesh is not None or self.on_device:
+            raise ValueError("to(mesh=) shards host arrays; prepare the blocks again")
+        ups = {} if uploaders is None else uploaders
+        n = next(iter(self.arrays.values())).shape[0]
+        ranges = block_sharding(mesh, n)
+        arrays: dict[str, list] = {k: [] for k in self.arrays}
+        for dev, rows in zip(mesh.devices, ranges):
+            parts = []
+            for v in self.arrays.values():
+                part = v[rows.start:min(rows.stop, n)]
+                if part.shape[0] < len(rows):
+                    part = np.concatenate([part, np.zeros((len(rows) - part.shape[0],) + v.shape[1:], v.dtype)])
+                parts.append(part)
+            for k, t in zip(self.arrays, uploader_for(ups, dev)(*parts)):
+                arrays[k].append(t)
+        first = mesh.devices[0]
+        return dataclasses.replace(self, arrays=arrays, device=first, uploader=uploader_for(ups, first), mesh=mesh,
+                                   uploaders=ups)
 
 
 def prepare_device_blocks(sf: SageFile) -> DeviceBlocks:
@@ -472,15 +534,6 @@ def unpack_block_rows(packed: torch.Tensor, dicts: torch.Tensor, widths) -> dict
 # in the JAX package: kernel shapes (grid, scratch) then come from a small
 # set, and padded lanes decode to deterministic PAD.
 
-def gather_block_arrays(db: DeviceBlocks, ids: np.ndarray, valid: np.ndarray) -> dict[str, torch.Tensor]:
-    """Gather a padded block-id set out of resident arrays, on their device,
-    plus the (B, 1) validity column the masked decoders consume."""
-    idx, v = db.upload(np.asarray(ids, dtype=np.int64), np.asarray(valid, dtype=np.int32)[:, None])
-    sub = {k: a.index_select(0, idx) for k, a in db.arrays.items()}
-    sub["valid"] = v
-    return sub
-
-
 def _fill_counts(out: dict[str, torch.Tensor], sub: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     """Per-block counts from the gathered ``dir`` rows, masked by the
     validity column (the decode kernel emits token/read planes only)."""
@@ -491,19 +544,83 @@ def _fill_counts(out: dict[str, torch.Tensor], sub: dict[str, torch.Tensor]) -> 
     return out
 
 
-def decode_blocks_padded(
+def gather_lanes(db: DeviceBlocks, ids, dev, keys=None, valid=None) -> dict[str, torch.Tensor]:
+    """Rows ``ids`` of the resident arrays (``keys``: all when None) as
+    tensors on ``dev``, in the order of ``ids``, and with ``valid`` (the
+    lanes' validity mask) the (B, 1) int32 column ``"valid"`` the masked
+    decoders consume. Each row comes from whichever shard holds it (one
+    ``index_select`` a home shard on its own device), rows of another
+    device are copied to ``dev`` (a peer copy between cards), and the
+    parts are put back in ``ids``' order. When every row's home is on
+    ``dev`` (always, for a one-device residency) the ids and the mask go
+    up in one copy."""
+    ids = np.asarray(ids, dtype=np.int64)
+    names = tuple(db.arrays) if keys is None else tuple(keys)
+    dev = indexed_device(dev)
+    col = () if valid is None else (np.asarray(valid, dtype=np.int32)[:, None],)
+    if db.mesh is None:
+        shards, devs, offs = [db.arrays], [indexed_device(db.device)], np.zeros(1, dtype=np.int64)
+    else:
+        shards = [{k: db.arrays[k][i] for k in names} for i in range(db.mesh.shards)]
+        devs, offs = list(db.mesh.devices), db.shard_offsets()
+    homes = np.searchsorted(offs, ids, side="right") - 1
+    loc = ids - offs[homes]
+    h0 = int(homes[0]) if ids.size else 0
+    if devs[h0] == dev and (homes == h0).all():
+        idx, *v = db.upload(loc, *col, device=dev)
+        out = {k: shards[h0][k].index_select(0, idx) for k in names}
+    else:
+        parts, order = [], []
+        for h in np.unique(homes):
+            sel = np.flatnonzero(homes == h)
+            (idx,) = db.upload(loc[sel], device=devs[h])
+            rows = {k: shards[h][k].index_select(0, idx) for k in names}
+            if devs[h] != dev:
+                rows = {k: r.to(dev, non_blocking=True) for k, r in rows.items()}
+            parts.append(rows)
+            order.append(sel)
+        inv, *v = db.upload(np.argsort(np.concatenate(order)), *col, device=dev)
+        out = {k: torch.cat([p[k] for p in parts]).index_select(0, inv) for k in names}
+    if v:
+        out["valid"] = v[0]
+    return out
+
+
+def decode_blocks_sharded(
     db: DeviceBlocks,
     ids: np.ndarray,
     valid: np.ndarray,
+    *,
+    mesh: BlockMesh,
+    postprocess: Optional[Callable[[dict[str, torch.Tensor]], dict[str, torch.Tensor]]] = None,
 ) -> dict[str, torch.Tensor]:
-    """Decode an already-padded block-id set; returns padded-length outputs.
-    The block-decode kernel runs on CUDA tensors; CPU tensors take its
-    plain version."""
+    """Decode an already-padded block-id set over the lane shards of
+    ``mesh``: lane shard ``i`` holds ids ``[i*b, (i+1)*b)``, gathered from
+    whichever shard holds each block (:func:`gather_lanes`), and decodes
+    on ``mesh.devices[i]`` with its own valid-mask tail (the block-decode
+    kernel on CUDA, its plain version on the CPU); ``postprocess`` (the
+    format) runs on each shard's output there. The outputs come back as
+    one tensor each on the mesh's first device, in lane order.
+
+    ``ids`` must be padded to a multiple of the shard count (see
+    :func:`pad_block_ids`)."""
     from repro_torch.kernels.sage_decode import sage_decode_arrays
 
-    sub = gather_block_arrays(db, ids, valid)
-    out = sage_decode_arrays(sub, caps=db.caps, classes=db.classes, fixed_len=db.fixed_len)
-    return _fill_counts(dict(out), sub)
+    ids = np.asarray(ids, dtype=np.int64)
+    valid = np.asarray(valid, dtype=np.int32)
+    if ids.size % mesh.shards:
+        raise ValueError(f"{ids.size} lanes do not split over {mesh.shards} shards; pad with pad_block_ids")
+    b = ids.size // mesh.shards
+    parts = []
+    for i, dev in enumerate(mesh.devices):
+        sub = gather_lanes(db, ids[i * b:(i + 1) * b], dev, valid=valid[i * b:(i + 1) * b])
+        out = _fill_counts(dict(sage_decode_arrays(sub, caps=db.caps, classes=db.classes,
+                                                   fixed_len=db.fixed_len)), sub)
+        parts.append(postprocess(out) if postprocess is not None else out)
+    if len(parts) == 1:
+        return parts[0]
+    first = mesh.devices[0]
+    return {k: torch.cat([p[k].to(first, non_blocking=True) for p in parts]) for k in parts[0]}
 
 
 def empty_decode(caps, device) -> dict[str, torch.Tensor]:
@@ -522,25 +639,31 @@ def decode_blocks_bucketed(
     ids: np.ndarray,
     *,
     postprocess: Optional[Callable[[dict[str, torch.Tensor]], dict[str, torch.Tensor]]] = None,
-    mesh=None,
+    mesh: Optional[BlockMesh] = None,
 ) -> dict[str, torch.Tensor]:
     """Bucketed ranged decode: pad ``ids`` to its power-of-two bucket,
     decode on the blocks' device, and slice the outputs back to
     ``len(ids)``. ``postprocess`` (e.g. output formatting) runs at the
-    padded bucket shape."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (block-sharded decode) is not ported yet "
-            "(ROADMAP Queue A, slice 7: multi-GPU)"
-        )
+    padded bucket shape.
+
+    The decode runs over the lane shards of ``mesh`` (a
+    :class:`BlockMesh`; :func:`decode_blocks_sharded`, the ids padded to
+    the per-shard bucket times the shard count), or with no mesh as one
+    shard on the blocks' device (a block-sharded residency's first
+    device). The port has one
+    decoder per device (the kernel on CUDA, its plain version on the CPU),
+    so ``repro``'s ``decoder=`` / ``decoder_key=`` pair has no counterpart;
+    a mesh that is not a BlockMesh (a ``DeviceMesh``) raises TypeError."""
+    if mesh is not None and not isinstance(mesh, BlockMesh):
+        raise TypeError(f"mesh= takes a BlockMesh (the store-level block mesh), got {type(mesh).__name__}")
     ids = np.asarray(ids, dtype=np.int64)
     if ids.size == 0:
         out = empty_decode(db.caps, db.device)
         return postprocess(out) if postprocess is not None else out
-    padded, valid = pad_block_ids(ids)
-    out = decode_blocks_padded(db, padded, valid)
-    if postprocess is not None:
-        out = postprocess(out)
+    if mesh is None:
+        mesh = BlockMesh((db.device,))
+    padded, valid = pad_block_ids(ids, mesh.shards)
+    out = decode_blocks_sharded(db, padded, valid, mesh=mesh, postprocess=postprocess)
     if padded.size == ids.size:
         return out
     return {k: v[: ids.size] for k, v in out.items()}
@@ -589,6 +712,9 @@ def fused_decode_blocks_bucketed(
             f"format {fmt_name!r} has no registered fuser; "
             f"use the two-step decode path"
         )
+    if db.mesh is not None:
+        raise ValueError("the fused decode reads one device's residency; a block-sharded one takes "
+                         "the two-step path (decode_blocks_bucketed)")
     out_key, fn = _FORMAT_FUSERS[fmt_name]
     epilogue = fmt_name if fmt_name in FUSED_EPILOGUES else "2bit"
     ids = np.asarray(ids, dtype=np.int64)

@@ -38,13 +38,14 @@ from repro_torch.core.bitio import unpack_2bit_batch
 from repro_torch.core.blocks import block_row_widths, localize_directory
 from repro_torch.core.decode_torch import (
     DeviceBlocks,
-    Uploader,
     decode_blocks_bucketed,
     fused_decode_blocks_bucketed,
     fused_format_supported,
+    gather_lanes,
     prepare_device_blocks,
     resolve_device,
     unpack_block_rows,
+    uploader_for,
 )
 from repro_torch.core.encoder import SageEncoder
 from repro_torch.core.errors import (
@@ -61,17 +62,30 @@ from repro_torch.core.layout import (
     new_io_stats,
     write_v2,
 )
+from repro_torch.distributed.sharding import BlockMesh, block_shard_count, make_block_mesh
 
 BlockRange = Union[None, int, tuple, Sequence[int]]
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+def _resolve_mesh(mesh: Optional[BlockMesh], shards: Optional[int], device_type: str) -> Optional[BlockMesh]:
+    """Normalize the mesh=/shards= knob pair (shards builds a block mesh
+    over the visible devices of ``device_type``; shards=1 is no mesh)."""
+    if mesh is not None and shards is not None:
+        raise ValueError("pass mesh= or shards=, not both")
+    if shards is not None:
+        return None if shards == 1 else make_block_mesh(shards, device_type=device_type)
+    if mesh is not None and not isinstance(mesh, BlockMesh):
+        raise TypeError(f"mesh= takes a BlockMesh, got {type(mesh).__name__}")
+    return mesh
 
 
 def slice_device_blocks(db: DeviceBlocks, ids: np.ndarray) -> DeviceBlocks:
     """A DeviceBlocks view holding only the selected blocks (block-major
-    gather; blocks decode independently, so any subset is decodable)."""
+    gather; blocks decode independently, so any subset is decodable). A
+    block-sharded residency's view lies on its first device."""
+    if db.mesh is not None:
+        arrays = gather_lanes(db, ids, db.device)
+        return dataclasses.replace(db, arrays=arrays, n_blocks=len(ids), mesh=None)
     if db.on_device:
         idx = torch.as_tensor(np.asarray(ids, dtype=np.int64), device=db.device)
         arrays = {k: v.index_select(0, idx) for k, v in db.arrays.items()}
@@ -111,7 +125,17 @@ class SageStore:
     requested blocks' bytes end-to-end: disk -> host cache -> device.
     Eager sources (in-memory SageFiles, v1 ``.npz`` paths) keep whole-file
     residency under the same LRU (key ``(dataset, None)``). ``io_stats``
-    counts every container byte moved."""
+    counts every container byte moved.
+
+    Multi-device: ``mesh`` (a :class:`BlockMesh`, devices of ``device``'s
+    type) or ``shards=N`` (a mesh over the first N visible devices) shards
+    residency over the block axis, the paper's per-channel partitioning
+    (§5.3): each device holds its run of every resident group (groups pad
+    to a multiple of the shard count), a codec group unpacks shard by shard
+    on each shard's device, and sessions decode lane shard by lane shard
+    (:func:`~repro_torch.core.decode_torch.decode_blocks_sharded`). Reads
+    hand back one tensor on the mesh's first device, the store's
+    ``device``."""
 
     def __init__(
         self,
@@ -120,16 +144,20 @@ class SageStore:
         device="cuda",
         group_blocks: int = 32,
         cache_budget: Optional[int] = 256 * 2**20,
-        mesh=None,
+        mesh: Optional[BlockMesh] = None,
         shards: Optional[int] = None,
     ) -> None:
-        if mesh is not None or shards is not None:
-            raise _not_ported("SageStore(mesh=/shards=)", "Queue A, slice 7: multi-GPU")
+        dev = resolve_device(device)
+        self.mesh = _resolve_mesh(mesh, shards, dev.type)
+        if self.mesh is not None:
+            if self.mesh.devices[0].type != dev.type:
+                raise ValueError(f"the mesh's devices are {self.mesh.devices[0].type} but device={device!r}")
+            dev = resolve_device(self.mesh.devices[0])
         if max_prepared < 1:
             raise ValueError("max_prepared must be >= 1")
         if group_blocks < 1:
             raise ValueError("group_blocks must be >= 1")
-        self.device = resolve_device(device)
+        self.device = dev
         self.max_prepared = max_prepared
         self.group_blocks = group_blocks
         self.last_write_stats: dict = {}
@@ -152,9 +180,11 @@ class SageStore:
             "stream_wall_seconds",
         ):
             self._io[k] = 0.0
-        self.uploader = Uploader(self.device)
-        # codec dictionaries on the device, uploaded once per reader
-        self._device_dicts: "weakref.WeakKeyDictionary[SageContainerV2, torch.Tensor]" = (
+        # one uploader a device of the mesh (the store's own for its device)
+        self._uploaders: dict = {}
+        self.uploader = uploader_for(self._uploaders, self.device)
+        # codec dictionaries on each device, uploaded once per reader
+        self._device_dicts: "weakref.WeakKeyDictionary[SageContainerV2, dict]" = (
             weakref.WeakKeyDictionary()
         )
         self._extent_cache = HostExtentCache(cache_budget)
@@ -651,9 +681,22 @@ class SageStore:
                 self._bump_cache(name, "hits")
                 return self._prepared[key]
             self._bump_cache(name, "misses")
-            db = prepare_device_blocks(self.file(name)).to(self.device, self.uploader)
+            db = self._resident(prepare_device_blocks(self.file(name)))
             self._insert_prepared(key, db)
             return db
+
+    def _resident(self, db: DeviceBlocks) -> DeviceBlocks:
+        """Host blocks made resident: on the store's device, or block-sharded
+        over its mesh."""
+        if self.mesh is None:
+            return db.to(self.device, self.uploader)
+        return db.to(mesh=self.mesh, uploaders=self._uploaders)
+
+    def _group_stride(self) -> int:
+        """Device rows a resident block group: ``group_blocks`` padded up to
+        the mesh's shard count, so every group shards evenly."""
+        g = self.group_blocks
+        return g + (-g) % block_shard_count(self.mesh)
 
     def _insert_prepared(self, key: tuple, db: DeviceBlocks) -> None:
         self._prepared[key] = db
@@ -682,19 +725,19 @@ class SageStore:
                 return self._prepared[key]
             self._bump_cache(name, "misses")
             r = self._require_reader(name, gi)
-            stride = self.group_blocks
+            stride = self._group_stride()
         if r.codec is not None:
             entry = self._host_group_codec(name, gi, r)
             db, decoded = self._decode_codec_entry(r, stride, entry)
         else:
             arrays = self._host_group_raw(name, gi, r, stride)
-            db = DeviceBlocks(
+            db = self._resident(DeviceBlocks(
                 arrays=arrays,
                 caps=r.meta.caps,
                 classes=r.meta.classes,
                 fixed_len=r.meta.fixed_read_len,
                 n_blocks=stride,
-            ).to(self.device, self.uploader)
+            ))
             decoded = 0
         with self._lock:
             # re-check under the lock: a concurrent thread may have uploaded
@@ -831,8 +874,10 @@ class SageStore:
     ) -> tuple[DeviceBlocks, int]:
         """Upload a codec host entry: re-pad the ragged payload to the
         container's uniform ``cap_words``, upload it, and undo the codec on
-        the store's device (the unpack kernel on CUDA). Returns the device
-        blocks plus the decoded-byte count for the caller to account."""
+        the store's device (the unpack kernel on CUDA). Under a mesh each
+        shard's run of rows uploads to its device and unpacks there, with
+        ``cons`` and ``dir`` split alike. Returns the device blocks plus the
+        decoded-byte count for the caller to account."""
         lens = entry["lens"]
         n = int(lens.size)
         cap = r._cap_words
@@ -843,24 +888,27 @@ class SageStore:
         cons[:n] = entry["cons"]
         dirr = np.zeros((stride,) + entry["dir"].shape[1:], entry["dir"].dtype)
         dirr[:n] = entry["dir"]
+        devs = (self.device,) if self.mesh is None else self.mesh.devices
         with self._lock:
-            dicts = self._device_dicts.get(r)
-            if dicts is None:
-                (dicts,) = self.uploader(np.asarray(r._codec_dicts, dtype=np.uint8))
-                self._device_dicts[r] = dicts
-        packed, cons_t, dir_t = self.uploader(buf, cons, dirr)
-        arrays = dict(unpack_block_rows(packed, dicts, dict(r.layout.widths)))
-        arrays["cons"] = cons_t
-        arrays["dir"] = dir_t
-        db = DeviceBlocks(
-            arrays=arrays,
-            caps=r.meta.caps,
-            classes=r.meta.classes,
-            fixed_len=r.meta.fixed_read_len,
-            n_blocks=stride,
-            device=self.device,
-            uploader=self.uploader,
-        )
+            dicts = self._device_dicts.setdefault(r, {})
+            for dev in devs:
+                if dev not in dicts:
+                    (dicts[dev],) = uploader_for(self._uploaders, dev)(np.asarray(r._codec_dicts, dtype=np.uint8))
+        per = stride // len(devs)
+        shards = []
+        for i, dev in enumerate(devs):
+            rows = slice(i * per, (i + 1) * per)
+            packed, cons_t, dir_t = uploader_for(self._uploaders, dev)(buf[rows], cons[rows], dirr[rows])
+            arrays = dict(unpack_block_rows(packed, dicts[dev], dict(r.layout.widths)))
+            arrays["cons"] = cons_t
+            arrays["dir"] = dir_t
+            shards.append(arrays)
+        meta = dict(caps=r.meta.caps, classes=r.meta.classes, fixed_len=r.meta.fixed_read_len, n_blocks=stride,
+                    device=self.device, uploader=self.uploader)
+        if self.mesh is None:
+            return DeviceBlocks(arrays=shards[0], **meta), n * r.layout.payload_nbytes
+        arrays = {k: [a[k] for a in shards] for k in shards[0]}
+        db = DeviceBlocks(arrays=arrays, mesh=self.mesh, uploaders=self._uploaders, **meta)
         return db, n * r.layout.payload_nbytes
 
     def prefetch_group_host(self, name: str, gi: int) -> bool:
@@ -882,7 +930,7 @@ class SageStore:
             r = self._reader(name)
             if r is None:
                 return False
-            stride = self.group_blocks
+            stride = self._group_stride()
         if r.codec is not None:
             self._host_group_codec(name, gi, r)
         else:
@@ -945,6 +993,8 @@ class SageStore:
         dbs = {gi: self._prepared_group(name, gi) for gi in gis}
         if len(gis) == 1:
             return dbs[gis[0]], ids % g
+        if self.mesh is not None:
+            return self._sharded_rows(dbs, ids, gids)
         # stable group-sort, gather each group's requested rows once, and
         # invert the permutation — all index math vectorized on host
         sidx = np.argsort(gids, kind="stable")
@@ -963,6 +1013,34 @@ class SageStore:
             fixed_len=first.fixed_len, n_blocks=ids.size, device=self.device,
             uploader=self.uploader,
         )
+        return db, local
+
+    def _sharded_rows(self, dbs: dict, ids: np.ndarray, gids: np.ndarray) -> tuple[DeviceBlocks, np.ndarray]:
+        """The requested rows of several resident groups as one block-sharded
+        residency: each row stays on the shard that holds it (shard ``i``'s
+        run is its rows of every group, in group order), and no row crosses
+        devices; returns it with the rows' local ids."""
+        per = self._group_stride() // self.mesh.shards
+        row = ids % self.group_blocks
+        home = row // per
+        order = np.lexsort((np.arange(ids.size), gids, home))
+        arrays: dict[str, list] = {k: [] for k in next(iter(dbs.values())).arrays}
+        for i, dev in enumerate(self.mesh.devices):
+            mine = order[home[order] == i]
+            parts = []
+            for gi in sorted(set(gids[mine].tolist())):
+                sel = mine[gids[mine] == gi]
+                (idx,) = uploader_for(self._uploaders, dev)(row[sel] - i * per)
+                parts.append({k: v[i].index_select(0, idx) for k, v in dbs[gi].arrays.items()})
+            for k in arrays:
+                arrays[k].append(torch.cat([p[k] for p in parts]) if parts
+                                 else next(iter(dbs.values())).arrays[k][i][:0])
+        local = np.empty(ids.size, dtype=np.int64)
+        local[order] = np.arange(ids.size, dtype=np.int64)
+        first = next(iter(dbs.values()))
+        db = DeviceBlocks(arrays=arrays, caps=first.caps, classes=first.classes, fixed_len=first.fixed_len,
+                          n_blocks=ids.size, device=self.device, uploader=self.uploader, mesh=self.mesh,
+                          uploaders=self._uploaders)
         return db, local
 
     def n_blocks(self, name: str) -> int:
@@ -990,39 +1068,55 @@ class SageStore:
             caps = self.meta(name).caps
             return np.zeros((0, caps.window), np.int8), np.zeros((0,), np.int64)
         db, local = self.prepared_for(name, ids)
-        idx = torch.as_tensor(local, device=db.device)
-        rows = db.arrays["cons"].index_select(0, idx).cpu().numpy().view(np.uint32)
+        rows = db.take("cons", local).cpu().numpy().view(np.uint32)
         wins = unpack_2bit_batch(rows, db.caps.window).astype(np.int8)
-        starts = db.arrays["dir"][idx, D["cons_start"]].cpu().numpy().astype(np.int64)
+        starts = db.take("dir", local)[:, D["cons_start"]].cpu().numpy().astype(np.int64)
         return wins, starts
 
     def session(
         self,
         *,
         fused: bool = False,
-        mesh=None,
+        mesh: Optional[BlockMesh] = None,
         shards: Optional[int] = None,
     ) -> "SageReadSession":
         """Open a read session on the store's device. Decode runs the
         two-step path (the block-decode kernel, then the format kernel), or
         with ``fused=True`` gather, decode and format as one kernel (B5) for
         every format with a registered fuser (bit-identical output; other
-        formats take the two-step path). ``mesh``/``shards`` are not ported
-        yet and raise."""
-        if mesh is not None or shards is not None:
-            raise _not_ported("session(mesh=/shards=)", "Queue A, slice 7: multi-GPU")
-        return SageReadSession(self, fused=fused)
+        formats take the two-step path).
+
+        ``mesh``/``shards`` default to the store's mesh (``shards=1``
+        decodes on the store's device). On a sharded store the only valid
+        overrides are the store's own mesh or ``shards=1``: decoding a
+        residency under another mesh is rejected here, as ``repro`` does.
+        A mesh session, or one over block-sharded residency, takes the
+        two-step path even when ``fused``, as ``repro``'s mesh sessions do."""
+        m = _resolve_mesh(mesh, shards, self.device.type)
+        if mesh is None and shards is None:
+            m = self.mesh
+        if m is not None and self.mesh is not None and m != self.mesh:
+            raise ValueError(
+                "session mesh must match the store's residency mesh "
+                f"({m.shards} vs {self.mesh.shards} shards on {m.devices} vs {self.mesh.devices}); "
+                "re-shard by building a store with the desired mesh, or pass "
+                "shards=1 for the single-device decode path"
+            )
+        return SageReadSession(self, fused=fused, mesh=m)
 
 
 class SageReadSession:
     """One consumer's view of a store: the paper's command set, decoding on
     the store's device (CUDA kernels on ``cuda``, their plain torch
     versions on ``cpu``); ``fused`` sessions decode and format in one
-    kernel."""
+    kernel. With a ``mesh`` every read, stream and ISP call decodes lane
+    shard by lane shard on the mesh's devices and hands back one tensor a
+    key on its first device."""
 
-    def __init__(self, store: SageStore, *, fused: bool = False) -> None:
+    def __init__(self, store: SageStore, *, fused: bool = False, mesh: Optional[BlockMesh] = None) -> None:
         self.store = store
         self.fused = fused
+        self.mesh = mesh
 
     # ------------------------------------------------------------ SAGe_Write
     def write(self, name: str, read_set, consensus, **kwargs) -> SageFile:
@@ -1084,7 +1178,7 @@ class SageReadSession:
         fuser is registered for ``fmt``; other formats take the two-step
         path."""
         spec = get_format(fmt)
-        if self.fused and fused_format_supported(spec.name):
+        if self.fused and self.mesh is None and db.mesh is None and fused_format_supported(spec.name):
             if spec.requires_k and kmer_k is None:
                 # the same contract apply_format enforces on the 2-step path
                 raise ValueError(
@@ -1097,6 +1191,7 @@ class SageReadSession:
             postprocess=lambda dec: apply_format(
                 dec, fmt, kmer_k=kmer_k, context=f"SAGe_Read({name!r})",
             ),
+            mesh=self.mesh,
         )
 
     # -------------------------------------------------------------- SAGe_ISP

@@ -99,7 +99,12 @@ class SageTokenPipeline:
     ``source`` is either a :class:`SageFile` (registered into ``store``, or
     into a private ``SageStore()`` on the card) or the name of a dataset
     already registered in ``store``. By default the pipeline reads through
-    a fused session of the store (one gather+decode+k-mer kernel a fetch)."""
+    a fused session of the store (one gather+decode+k-mer kernel a fetch).
+
+    ``mesh`` / ``shards`` shard the private store's residency over a block
+    mesh (its session then takes the two-step path); with a shared
+    ``store`` they belong on the store and raise here. The token stream is
+    the same for every shard count."""
 
     def __init__(
         self,
@@ -120,24 +125,25 @@ class SageTokenPipeline:
         mesh=None,
         shards: Optional[int] = None,
     ) -> None:
-        if mesh is not None or shards is not None:
-            raise NotImplementedError(
-                "SageTokenPipeline(mesh=/shards=) is not ported yet "
-                "(ROADMAP Queue A, slice 7: multi-GPU)"
-            )
         if session is not None:
             # fetch-path reuse: a shared session carries its store and its
             # device residency instead of opening a second store
             if store is not None and session.store is not store:
                 raise ValueError("session= belongs to a different store than store=")
             store = session.store
+        if store is not None and (mesh is not None or shards is not None):
+            raise ValueError(
+                "pass mesh/shards on the shared SageStore, not the pipeline — "
+                "residency sharding is store-level state"
+            )
         if isinstance(source, SageFile):
             if store is not None and name in store.names() and store.source(name) is not source:
                 raise ValueError(
                     f"dataset {name!r} already registered in the store with a different "
                     f"source; pass a unique name= to avoid clobbering it"
                 )
-            self.store = store or SageStore()
+            self.store = store or SageStore(device=mesh.devices[0] if mesh is not None else "cuda",
+                                            mesh=mesh, shards=shards)
             self.name = name
             self.store.register(self.name, source)
         else:

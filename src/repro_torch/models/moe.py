@@ -30,8 +30,17 @@ Where a line-by-line translation would give other results:
   outputs are added one after the other in ascending expert id (the order
   of the reference's scatter on the CPU), so two runs give the same bits.
 
-Only the single-device path is ported: the reference's expert-parallel
-``shard_map`` path comes with ROADMAP Queue A, slice 7.
+Expert parallelism (the reference's ``shard_map`` path): with sharding
+rules installed (``repro_torch.distributed.use_rules``) whose model axis
+has tp > 1 ranks and ``E % tp == 0``, each rank holds its rows of the batch
+(its coordinates on the rules' batch axes) and runs the dispatch over its
+experts ``[off, off + E/tp)`` only; an all-reduce (sum) over the model
+axis's process group combines the partial outputs. The cross-rank sum adds
+in another order than the one-device combine, so the two agree within
+float rounding, not bit for bit. The aux loss is the global batch's: the
+means of ``probs`` and of the routing counts are averaged over the batch
+axes before their product, as the reference computes them outside its
+``shard_map``.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ import math
 import torch
 from torch import nn
 
+from repro_torch.distributed.sharding import axes_size, current_rules
 from repro_torch.models import layers as L
 from repro_torch.models.layers import F32, cast_once
 
@@ -137,26 +147,30 @@ def _expert_ffn(buf, wg, wu, wd, act: str):
     return torch.bmm(L._act(torch.bmm(buf, wg), act) * torch.bmm(buf, wu), wd)
 
 
-def _dispatch_ffn(x, top_e, top_w, wg, wu, wd, cfg, seq_chunk: int = SEQ_CHUNK):
-    """Sort dispatch + expert FFN + combine over all experts. x: (B, S, d)
-    in the compute dtype; top_e, top_w: (B, S, k); wg, wu (E, d, f) and wd
-    (E, f, d) in x's dtype. Returns the routed experts' y (B, S, d)."""
+def _dispatch_ffn(x, top_e, top_w, wg, wu, wd, cfg, off: int = 0, e_local=None, seq_chunk: int = SEQ_CHUNK):
+    """Sort dispatch + expert FFN + combine for the local expert slice
+    ``[off, off + e_local)`` (all experts by default). x: (B, S, d) in the
+    compute dtype; top_e, top_w: (B, S, k); wg, wu (e_local, d, f) and wd
+    (e_local, f, d) in x's dtype. Returns the routed experts' partial y
+    (B, S, d): pairs routed to other experts contribute zero."""
     B, S, d = x.shape
     if S > seq_chunk and S % seq_chunk == 0:
         parts = [_dispatch_ffn(x[:, i:i + seq_chunk], top_e[:, i:i + seq_chunk], top_w[:, i:i + seq_chunk],
-                               wg, wu, wd, cfg, seq_chunk) for i in range(0, S, seq_chunk)]
+                               wg, wu, wd, cfg, off, e_local, seq_chunk) for i in range(0, S, seq_chunk)]
         return torch.cat(parts, dim=1)
-    k, E = cfg.moe_top_k, cfg.n_experts
+    k = cfg.moe_top_k
+    E = cfg.n_experts if e_local is None else e_local
     n = S * k
     cap = expert_capacity(S, cfg)
     dev = x.device
     order, se, seg_start, seg_end = _segments(top_e, cfg)
     tok = order // k  # (B, n): the token of each sorted pair
 
-    # the buffer, slot (e, b, c) <- sorted pair seg_start[b, e] + c while it
-    # is one of expert e's pairs (c < its count); other slots hold zeros
-    slot = seg_start[:, :, None] + torch.arange(cap, device=dev)  # (B, E, cap)
-    filled = slot < seg_end[:, :, None]
+    # the buffer, slot (e, b, c) <- sorted pair seg_start[b, off + e] + c
+    # while it is one of expert off + e's pairs (c < its count); other slots
+    # hold zeros
+    slot = seg_start[:, off:off + E, None] + torch.arange(cap, device=dev)  # (B, E, cap)
+    filled = slot < seg_end[:, off:off + E, None]
     src = torch.gather(tok, 1, torch.clamp(slot, max=n - 1).view(B, E * cap)).view(B, E, cap)
     rows = src + (torch.arange(B, device=dev) * S)[:, None, None]
     rows, filled = rows.transpose(0, 1).reshape(-1), filled.transpose(0, 1).reshape(-1, 1)
@@ -169,9 +183,10 @@ def _dispatch_ffn(x, top_e, top_w, wg, wu, wd, cfg, seq_chunk: int = SEQ_CHUNK):
     sp = torch.sort(inv.view(B, S, k), dim=-1).values.view(B, n)
     e = torch.gather(se, 1, sp)
     pos = sp - torch.gather(seg_start, 1, e)
-    keep = pos < cap
+    keep = (pos < cap) & (e >= off) & (e < off + E)
     w = torch.gather(top_w.reshape(B, n).to(x.dtype), 1, torch.gather(order, 1, sp))
-    at = e * (B * cap) + (torch.arange(B, device=dev) * cap)[:, None] + torch.where(keep, pos, 0)
+    at = (torch.clamp(e - off, 0, E - 1) * (B * cap) + (torch.arange(B, device=dev) * cap)[:, None]
+          + torch.where(keep, pos, 0))
     val = torch.where(keep.view(-1, 1), out.index_select(0, at.view(-1)), 0).view(B, S, k, d)
     val = val * w.view(B, S, k, 1)
     y = val[:, :, 0]
@@ -180,22 +195,48 @@ def _dispatch_ffn(x, top_e, top_w, wg, wu, wd, cfg, seq_chunk: int = SEQ_CHUNK):
     return y
 
 
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum over ``group``, differentiable (its gradient is summed too)."""
+    from torch.distributed.nn.functional import all_reduce
+
+    return all_reduce(t, group=group)
+
+
 def moe_apply(p: dict, x: torch.Tensor, cfg):
     """x: (B, S, d) -> (y (B, S, d) in x's dtype, aux 0-d f32), with ``p``
     as :meth:`MoE.params` gives it (or any dict of tensors under the same
-    keys, cast to x's dtype where used)."""
+    keys, cast to x's dtype where used).
+
+    With sharding rules installed, ``x`` is this rank's rows of the global
+    batch and the expert-parallel path runs (module docstring); ``p`` holds
+    all ``E`` experts and each rank takes its slice."""
     B, S, _d = x.shape
     E, k = cfg.n_experts, cfg.moe_top_k
     probs, top_w, top_e = route(p, x, cfg)
+    rules = current_rules()
 
-    # load-balance aux loss (Switch / DeepSeek style)
+    # load-balance aux loss (Switch / DeepSeek style), over the global batch
     me = probs.mean(dim=(0, 1))
     counts = torch.zeros(E, dtype=F32, device=x.device).index_add_(
         0, top_e.reshape(-1), torch.ones(top_e.numel(), dtype=F32, device=x.device)) / (B * S * k)
+    batch_axes = (rules.batch() or ()) if rules is not None else ()
+    for a in batch_axes:
+        n = axes_size(rules.mesh, (a,))
+        me = _all_reduce(me, rules.mesh.get_group(a)) / n
+        counts = _all_reduce(counts, rules.mesh.get_group(a)) / n
     aux = E * torch.sum(me * counts)
 
     w = p["experts"]
-    y = _dispatch_ffn(x, top_e, top_w, w["gate"].to(x.dtype), w["up"].to(x.dtype), w["down"].to(x.dtype), cfg)
+    m = rules.model_axis if rules is not None and not rules.pure_dp else None
+    tp = axes_size(rules.mesh, (m,)) if m is not None and m in rules.axis_names else 1
+    if tp == 1 or E % tp:
+        y = _dispatch_ffn(x, top_e, top_w, w["gate"].to(x.dtype), w["up"].to(x.dtype), w["down"].to(x.dtype), cfg)
+    else:
+        e_local = E // tp
+        off = rules.mesh.get_local_rank(m) * e_local
+        w = {name: w_[off:off + e_local].to(x.dtype) for name, w_ in w.items()}
+        y = _all_reduce(_dispatch_ffn(x, top_e, top_w, w["gate"], w["up"], w["down"], cfg, off, e_local),
+                        rules.mesh.get_group(m))
     if cfg.n_shared_experts:
         y = y + L.mlp_apply(p["shared"], x, cfg.act, gated=True)
     return y, aux

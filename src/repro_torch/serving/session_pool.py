@@ -34,7 +34,7 @@ class SessionPool:
 
     Pass an existing ``store`` to serve datasets other components already
     registered (the training pipeline, a migration CLI, ...), or let the
-    pool build one from ``store_kwargs`` (``device``, ``max_prepared``,
+    pool build one from ``store_kwargs`` (``device``, ``shards``, ``mesh``, ``max_prepared``,
     ``group_blocks``, ``cache_budget``, ...)."""
 
     def __init__(self, store: Optional[SageStore] = None, **store_kwargs) -> None:

@@ -26,6 +26,7 @@ from repro.kernels.sage_decode import sage_decode_arrays as ref_pallas_decode
 from repro_torch.convert import device_blocks_from_reference
 from repro_torch.core import decode_torch as DT
 from repro_torch.core.format import D
+from repro_torch.distributed.sharding import BlockMesh
 from repro_torch.kernels import sage_decode as SD
 
 from conftest import multiset
@@ -81,7 +82,7 @@ def test_padded_bucket_matches_pallas_with_invalid_lanes(encoded):
     theirs = np_tree(ref_pallas_decode(sub_ref, caps=db_ref.caps, classes=db_ref.classes,
                                        fixed_len=db_ref.fixed_len, interpret=True))
     db = device_blocks_from_reference(db_ref, "cpu")
-    sub = DT.gather_block_arrays(db, padded, valid)
+    sub = DT.gather_lanes(db, padded, db.device, valid=valid)
     ours = SD.sage_decode_arrays(sub, caps=db.caps, classes=db.classes, fixed_len=db.fixed_len)
     assert_same(ours, theirs, SD.OUT_KEYS)
     lane = int(np.flatnonzero(valid == 0)[0])
@@ -93,7 +94,7 @@ def test_invalid_lanes_do_not_depend_on_occupant(encoded):
     _, sf = encoded
     db = device_blocks_from_reference(ref_prepare(sf), "cpu")
     valid = np.array([1, 1, 0, 0], np.int32)
-    outs = [DT.decode_blocks_padded(db, np.array([0, 0, occ, occ]), valid)
+    outs = [DT.decode_blocks_sharded(db, np.array([0, 0, occ, occ]), valid, mesh=BlockMesh((db.device,)))
             for occ in (0, db.n_blocks - 1)]
     assert_same(outs[0], {k: v.numpy() for k, v in outs[1].items()})
 
@@ -376,7 +377,7 @@ def model_runs(db, tile) -> dict[str, int]:
     nb = db.n_blocks
     ids = np.concatenate([np.arange(nb), [nb - 1, 0]])
     valid = np.concatenate([np.ones(nb, np.int32), [0, 0]])
-    sub = DT.gather_block_arrays(db, ids, valid)
+    sub = DT.gather_lanes(db, ids, db.device, valid=valid)
     want = DT.decode_block_arrays(sub, caps=db.caps, classes=db.classes, fixed_len=db.fixed_len)
     q = lane_quantities(sub, db.caps, db.classes, db.fixed_len)
     blk = {k: v.numpy() for k, v in sub.items()}

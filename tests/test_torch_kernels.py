@@ -36,6 +36,11 @@ The vlm and encdec families (qwen2-vl-72b and whisper-small, 1-layer cuts
 at full width) against the CPU:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_kernels.py -k vlm_encdec
+
+Block-sharded reads on the card (a 2-shard BlockMesh on one card, or on two)
+and the DP step's packed sum:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_kernels.py -k "sharded or packed"
 """
 
 import dataclasses
@@ -215,7 +220,7 @@ def test_unpack_kernel_spreads_a_group_over_the_card(cuda):
 def test_decode_kernel_matches_plain_with_invalid_lanes(cuda, profile):
     db = DT.prepare_device_blocks(encoded(profile)).to(cuda)
     padded, valid = pad_block_ids(np.arange(db.n_blocks)[::-1][:3])
-    sub = DT.gather_block_arrays(db, padded, valid)
+    sub = DT.gather_lanes(db, padded, db.device, valid=valid)
     DT.reset_trace_counts()
     got = ops.sage_decode(DT.DeviceBlocks(sub, db.caps, db.classes, db.fixed_len, len(padded), cuda))
     assert DT.trace_counts()["launch:sage_decode"] == 1
@@ -293,7 +298,7 @@ def test_fused_kernel_matches_plain_and_two_step(cuda, profile, fmt, k):
     got = ops.sage_fused(db, padded, valid, fmt, k)
     assert DT.trace_counts() == {"launch:sage_fused": 1}
     want = ref.sage_fused_ref(db, padded, valid, fmt, k)
-    sub = DT.gather_block_arrays(db, padded, valid)
+    sub = DT.gather_lanes(db, padded, db.device, valid=valid)
     two = DT._fill_counts(dict(ops.sage_decode(
         DT.DeviceBlocks(sub, db.caps, db.classes, db.fixed_len, len(padded), cuda))), sub)
     if fmt == "kmer":
@@ -331,6 +336,54 @@ def test_fused_session_read_launches_only_b5(cuda):
         assert_equal_dicts(out, two, [k for k in two if k != "block_ids"])
 
 
+@pytest.mark.parametrize("fused", (False, True), ids=("two_step", "fused"))
+@pytest.mark.parametrize("fmt", ("2bit", "kmer", "onehot"))
+def test_sharded_read_on_the_card_matches_one_device(cuda, fmt, fused, tmp_path):
+    """Block-sharded residency on a 2-shard BlockMesh (cuda:0 twice, or two
+    cards when the machine has them): reads of a codec v2 container across
+    groups and shards equal a one-device store's bit for bit; each shard
+    unpacks its run of every group (B1), decodes (B2) and formats (B3 /
+    B4) its lanes, a mesh session runs two-step, and nothing plain runs."""
+    from repro_torch.core import SageStore
+    from repro_torch.distributed import BlockMesh
+
+    path = tmp_path / "ds.sage2"
+    write_v2(encoded("illumina"), path)
+    n_cards = torch.cuda.device_count()
+    mesh = BlockMesh([torch.device("cuda", i if n_cards >= 2 else 0) for i in range(2)])
+    one, sharded = SageStore(device=cuda, group_blocks=3), SageStore(group_blocks=3, mesh=mesh)
+    for st in (one, sharded):
+        st.register("ds", str(path))
+    n = one.n_blocks("ds")
+    for rng in ((0, n), [5, 0, 3, 11]):
+        want = one.session(fused=fused).read("ds", rng, fmt, kmer_k=4)
+        DT.reset_trace_counts()
+        got = sharded.session(fused=fused).read("ds", rng, fmt, kmer_k=4)
+        torch.cuda.synchronize()
+        counts = DT.trace_counts()
+        assert_equal_dicts(got, want, [k for k in want if k != "block_ids"])
+        assert got["tokens"].device == mesh.devices[0]
+        assert not any(k.startswith("plain:") for k in counts) and "launch:sage_fused" not in counts, counts
+        assert counts["launch:sage_decode"] == 2, counts
+        fmt_kernel = {"kmer": "launch:kmer_pack", "onehot": "launch:one_hot"}.get(fmt)
+        assert fmt_kernel is None or counts[fmt_kernel] == 2, counts
+        if rng == (0, n):
+            assert counts["launch:sage_unpack"] == 2 * -(-n // 3), counts
+
+
+def test_packed_int16_sum_is_exact_on_the_card(cuda):
+    """The DP step's packing on CUDA tensors: four int16-range values an
+    int64 word, summed over 4 "ranks" in two orders, unpack exactly."""
+    from repro_torch.distributed.dp_step import pack_int16, unpack_int16
+
+    qmax = 32767 // 4
+    vals = torch.randint(-qmax, qmax + 1, (4, 100_003), generator=torch.Generator().manual_seed(0))
+    packed = [pack_int16(v.to(cuda)) for v in vals]
+    for order in ((0, 1, 2, 3), (3, 1, 0, 2)):
+        acc = sum(packed[i] for i in order)
+        assert torch.equal(unpack_int16(acc, vals.shape[1]).cpu(), vals.sum(0)), order
+
+
 @functools.lru_cache(maxsize=None)
 def full_width():
     """Illumina blocks at the main path's width (token_target 65536: C ~ 65 K
@@ -347,9 +400,9 @@ def decode_and_fused(db, padded, valid, dev, cases, plain_db=None):
     against its plain version run on ``plain_db`` (default: ``db`` itself);
     B5 also against B2 -> B3 / B4."""
     plain_db = plain_db or db
-    sub = DT.gather_block_arrays(db, padded, valid)
+    sub = DT.gather_lanes(db, padded, db.device, valid=valid)
     two = ops.sage_decode(DT.DeviceBlocks(sub, db.caps, db.classes, db.fixed_len, len(padded), dev))
-    psub = DT.gather_block_arrays(plain_db, padded, valid)
+    psub = DT.gather_lanes(plain_db, padded, plain_db.device, valid=valid)
     want = DT.decode_block_arrays(psub, caps=db.caps, classes=db.classes, fixed_len=db.fixed_len)
     torch.cuda.synchronize()
     assert_equal_dicts(two, want, SD.OUT_KEYS)
@@ -444,7 +497,7 @@ def test_decode_kernels_are_deterministic(cuda):
     the same bits."""
     db = DT.prepare_device_blocks(full_width()).to(cuda)
     padded, valid = pad_block_ids(np.arange(db.n_blocks))
-    sub = DT.gather_block_arrays(db, padded, valid)
+    sub = DT.gather_lanes(db, padded, db.device, valid=valid)
     dbs = DT.DeviceBlocks(sub, db.caps, db.classes, db.fixed_len, len(padded), cuda)
     one, again = ops.sage_decode(dbs), ops.sage_decode(dbs)
     assert_equal_dicts(one, again, SD.OUT_KEYS)

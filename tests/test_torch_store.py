@@ -17,6 +17,7 @@ from repro_torch.core import SageStore
 from repro_torch.core.decode_torch import reset_trace_counts, trace_counts
 from repro_torch.core.errors import IntegrityError
 from repro_torch.data import SageTokenPipeline
+from repro_torch.distributed import BlockMesh
 
 from torch_cases import assert_same, encoded_case, reference
 
@@ -159,13 +160,22 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
 
 def test_unported_options_raise_with_roadmap_item(codec_path):
+    """Slice 7's block-sharded residency is ported: a store builds on a
+    BlockMesh, ``shards=2`` raises as ``repro``'s does with one visible
+    device, a session on another mesh than the store's raises ``repro``'s
+    mismatch error, and mesh/shards on a pipeline over a shared store raise
+    ``repro``'s "pass mesh/shards on the shared store" error."""
     ours, theirs = stores(codec_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 7"):
-        SageTokenPipeline("ds", vocab_size=259, batch=1, seq_len=8, store=ours, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 7"):
+    cpu = torch.device("cpu")
+    sharded = SageStore(device="cpu", group_blocks=GROUP, mesh=BlockMesh([cpu] * 2))
+    sharded.register("ds", codec_path)
+    assert sharded.mesh.shards == 2 and sharded.session().mesh == sharded.mesh
+    with pytest.raises(ValueError, match="visible cpu device"):
         SageStore(device="cpu", shards=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 7"):
-        ours.session(mesh=object())
+    with pytest.raises(ValueError, match="residency mesh"):
+        sharded.session(mesh=BlockMesh([cpu] * 4))
+    with pytest.raises(ValueError, match="pass mesh/shards on the shared SageStore"):
+        SageTokenPipeline("ds", vocab_size=259, batch=1, seq_len=8, store=ours, mesh=BlockMesh([cpu] * 2))
     # slice 3 (batched SAGe_Write) is ported: the CPU store writes repro's SageFile
     rs, _ = encoded_case("illumina")
     cons = reference()

@@ -115,7 +115,7 @@ def main() -> None:
     ids, valid = pad_block_ids(np.arange(LANES) % db.n_blocks)
     R, _M, _I, _U, C = SD.decode_dims(db.caps)
     ins = {k: db.arrays[k] for k in list(SD.STREAMS) + ["cons", "dir"]}
-    sub = DT.gather_block_arrays(db, ids, valid)
+    sub = DT.gather_lanes(db, ids, db.device, valid=valid)
     sub["valid"] = sub["valid"].to(torch.int32).contiguous()
     idv = torch.as_tensor(np.stack([ids.astype(np.int32), valid]), device=dev)
     kw = dict(caps=db.caps, classes=db.classes, fixed_len=db.fixed_len)
