@@ -84,8 +84,23 @@ Phases, each printing one JSON line:
            steps taking turns with launch counts from 0 around each (B6
            2 x 48 forward and 48 backward a step, no plain call); 4 more
            warm steps of each kind in turns, timed; the all-reduced bytes
-           a gradient element. Nothing runs on more than one NCCL rank
-           (its line says so)
+           a gradient element. Then the same 2 steps with tensor and
+           sequence parallelism on a (data 1, model 1) DeviceMesh of that
+           group: the parameters DTensors (distribute_model) under
+           Rules(seq_shard=True), the batch entering as "tokens", B6 and the
+           cross-entropy behind their local_map boundaries, with f32
+           activations beside 2 plain f32 steps from the same weights; after
+           each step the loss, grad_norm, every parameter and both AdamW
+           moments, gathered whole, within train_cases' bounds of a plain
+           step's from the same state (compare_step: step 1 the plain run's,
+           step 2 a plain step from the TP state after step 1, as the CPU TP
+           tests hold each step), both losses within 1e-4 of the plain
+           run's, step 1's moments of opposite sign counted (the
+           differences printed), launch counts from
+           0 (B6 forward twice and backward once a layer a step through the
+           DTensor path, no plain call), 4 warm bf16 steps timed with the
+           others, the addition's seconds. Nothing runs on more than one NCCL rank, and one card
+           cannot run TP over two devices (its line says so)
   encode   batched SAGe_Write on the card of ~33,300 Illumina reads over a
            1 Mbp reference (token_target 65536): bases/s, t_map / t_pack /
            t_verify, launch counts from 0 (DP kernel and B2, no plain
@@ -242,6 +257,7 @@ try:
     from repro_torch.data.pipeline import Cursor
     from repro_torch.distributed import BlockMesh
     from repro_torch.distributed.dp_step import make_dp_train_step
+    from repro_torch.distributed.sharding import Rules, distribute_model, use_rules
     from repro_torch.genomics.batch_map import _batch_candidates, _traceback_batch
     from repro_torch.genomics.filter_torch import filter_store_blocks
     from repro_torch.genomics.mapper import ReadMapper, map_store_reads
@@ -259,11 +275,12 @@ try:
     from repro_torch.testing import FaultPlan, corrupt_extents, inject
     from repro_torch.training import Trainer, TrainerConfig, TrainOptions, init_train_state, make_train_step
     from repro_torch.training.steps import _stacked
-    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
 
     sys.path.insert(0, str(ROOT / "tests"))
     from dp_cases import CARD_DP_CASES, scan_inputs  # the DP's card test cases (numpy + the port)
-    from train_cases import compare_grads, compare_step, cut_batch, cut_models, grads_of, one_step  # card vs CPU
+    from train_cases import (TOL, compare_grads, compare_step, cut_batch, cut_models, f32_forward,  # card vs CPU
+                             grads_of, one_step, whole_state)
     from family_cases import family_inputs, prefix_duality  # the vlm / encdec inputs and duality
     from moe_cases import dropped_share, recorded, replayed  # the MoE router's decisions, card vs CPU
 except ImportError as e:  # run outside a checkout of the repository
@@ -1559,6 +1576,51 @@ def dp_loss_bound(plain: dict, m1: dict, qmax) -> tuple[list, float]:
     return [1e-6 * abs(losses[0])] + [2 * t * a + 1e-4 * abs(lt) for t, lt in enumerate(losses[1:], 1)], a
 
 
+def tp_step(step, rules):
+    """``step`` with tensor parallelism: run under ``rules``, the batch
+    entering as DTensors placed as "tokens"."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def run(model, opt, batch):
+        with use_rules(rules):
+            bt = {k: distribute_tensor(v, rules.mesh, rules.spec("tokens"), src_data_rank=None)
+                  for k, v in batch.items()}
+            return step(model, opt, bt)
+
+    return run
+
+
+def plain_copy(state, cfg, opts, dev) -> tuple:
+    """A plain (model, opt) on ``dev`` holding a TP state's ([model, opt,
+    step], DTensors) parameters and AdamW moments, gathered whole."""
+    from repro_torch.distributed.sharding import full_params
+
+    model, _opt = init_train_state(torch.Generator(device=dev).manual_seed(0), cfg, opts, device=dev)
+    model.load_state_dict(full_params(state[0]))
+    opt = {k: {n: t.full_tensor().clone() for n, t in state[1][k].items()} for k in ("m", "v")}
+    opt["step"] = state[1]["step"].clone()
+    return model, opt
+
+
+def step_sign_flips(a: dict, b: dict) -> dict:
+    """Where two flat train states after one step from the same weights
+    part: the elements whose first moment (the clipped gradient's sign)
+    has opposite signs, and the largest parameter difference over all
+    elements and over those. AdamW's first update moves an element by
+    lr·ĝ/(|ĝ| + eps), ±lr wherever |ĝ| is many eps, so a flipped sign
+    moves it 2·lr apart."""
+    n, top, top_flip = 0, 0.0, 0.0
+    for k in a:
+        if not k.startswith("opt/m/"):
+            continue
+        flip = (np.sign(a[k]) * np.sign(b[k])) < 0
+        dp = np.abs(a["params/" + k[len("opt/m/"):]].astype(np.float32) - b["params/" + k[len("opt/m/"):]])
+        n += int(flip.sum())
+        top = max(top, float(dp.max()))
+        top_flip = max(top_flip, float(dp[flip].max()) if flip.any() else 0.0)
+    return {"elements": n, "max_param_diff": top, "max_param_diff_where_flipped": top_flip}
+
+
 def shard_phase(dev, cfg, oracle: "Oracle") -> dict:
     """SAGe across block shards at full width, and the DP step at one NCCL
     rank (SHARD): a SageStore on a 2-shard BlockMesh against a one-device
@@ -1577,8 +1639,22 @@ def shard_phase(dev, cfg, oracle: "Oracle") -> dict:
     counts from 0 around each of those steps (B6 forward twice a layer,
     backward once, no plain call); then ``dp_warm`` more steps of plain,
     int16_ef and bf16 in turns (the order reversed every round), timed,
-    and the all-reduced bytes a gradient element. Nothing runs on more
-    than one NCCL rank. Returns the launches per kernel."""
+    and the all-reduced bytes a gradient element. Then "tp": the plain
+    step's 2 steps with the parameters as DTensors on a (data 1, model 1)
+    DeviceMesh under Rules(seq_shard=True) and f32 activations, beside 2
+    plain steps with f32 activations ("plain_f32") from the same weights:
+    after each step the TP state, gathered whole, is held leaf by leaf by
+    ``train_cases.compare_step`` (loss and grad_norm within 1e-4 relative;
+    m, v and every parameter within 1e-4 of max|leaf|, the parameters plus
+    AdamW's amplification of a near-zero gradient's error) against a plain
+    step from the same state: the plain run's at step 1, a plain step from
+    the TP state after step 1 at step 2 (``plain_copy``; the two runs part
+    where step 1's clipped gradients have opposite signs, which
+    ``step_sign_flips`` counts); both TP losses within 1e-4 of the plain
+    run's; the same launch counts; its warm steps run bf16 activations,
+    timed with the others.
+    Nothing runs on more than one NCCL rank. Returns the launches per
+    kernel."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -1686,34 +1762,53 @@ def shard_phase(dev, cfg, oracle: "Oracle") -> dict:
     # ---- the DP step at one NCCL rank, mamba2-370m at full width
     dist.init_process_group("nccl", store=dist.FileStore(str(WORK / "nccl_store"), 1), rank=0, world_size=1)
     L = cfg.n_layers
-    kinds = ("plain", "int16_ef", "bf16", "plain_again")
+    kinds = ("plain", "int16_ef", "bf16", "plain_again", "tp", "plain_f32")
+    tp_kinds = ("tp", "plain_f32")  # the TP check: f32 activations, held leaf by leaf
+    tp_s = 0.0  # seconds of the TP addition: its two states, its checked steps and checks, its warm steps
     try:
         dp_mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        tp_rules = Rules(init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model")), seq_shard=True)
         adamw = AdamWConfig(lr=sh["lr"], warmup_steps=sh["warmup"], total_steps=sh["dp_steps"])
         dp_batches = [{x: torch.from_numpy(bt[x]).to(dev) for x in ("tokens", "labels")}
                       for bt in batches[:sh["dp_steps"]]]
         states, runs, b6, m1, wire = {}, {}, {}, {}, {}
         for kind in kinds:  # every state from the same seed, all resident so the steps can take turns
+            t0 = time.perf_counter()
             opts = TrainOptions(adamw=adamw, grad_compress="int16_ef" if kind == "int16_ef" else None)
             model, opt = init_train_state(torch.Generator(device=dev).manual_seed(sh["seed"]), cfg, opts, device=dev)
-            step = make_train_step(cfg, opts) if kind.startswith("plain") else \
-                make_dp_train_step(cfg, opts, dp_mesh, ("data",), compress=kind)
+            if kind == "tp":
+                opt = adamw_init(dict(distribute_model(model, tp_rules).named_parameters()))
+                step = tp_step(make_train_step(cfg, opts), tp_rules)
+            else:
+                step = make_train_step(cfg, opts) if kind.startswith("plain") else \
+                    make_dp_train_step(cfg, opts, dp_mesh, ("data",), compress=kind)
             states[kind] = [model, opt, step]
             runs[kind] = {"losses": [], "lr": [], "grad_norm": [], "step_ms": [], "warm_ms": []}
             b6[kind] = {}
+            if kind in tp_kinds:
+                torch.cuda.synchronize()
+                tp_s += time.perf_counter() - t0
 
         def take(kind, bt):
+            nonlocal tp_s
             st = states[kind]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             st[0], st[1], met = st[2](st[0], st[1], bt)
             torch.cuda.synchronize()
+            if kind in tp_kinds:
+                tp_s += time.perf_counter() - t0
             return met, (time.perf_counter() - t0) * 1e3
 
+        def last(kind) -> dict:
+            return {key: runs[kind]["losses" if key == "loss" else key][-1] for key in ("loss", "lr", "grad_norm")}
+
+        tp_check = []
         for i, bt in enumerate(dp_batches):  # the checked steps in turns, launch counts from 0 around each
             for kind in kinds:
                 reset_trace_counts()
-                met, ms = take(kind, bt)
+                with f32_forward() if kind in tp_kinds else contextlib.nullcontext():
+                    met, ms = take(kind, bt)
                 for key, n in trace_counts().items():
                     b6[kind][key] = b6[kind].get(key, 0) + n
                 for key in ("loss", "lr", "grad_norm"):
@@ -1721,7 +1816,24 @@ def shard_phase(dev, cfg, oracle: "Oracle") -> dict:
                 runs[kind]["step_ms"].append(ms)
                 if kind == "plain" and i == 0:
                     m1 = {name: t.clone() for name, t in states[kind][1]["m"].items()}
-        timed = kinds[:3]
+            t0 = time.perf_counter()  # TP against plain after this step, every leaf gathered whole
+            tp_state = whole_state(cfg, *states["tp"][:2])
+            if i == 0:  # both from the seeded weights
+                ref = (last("plain_f32"), whole_state(cfg, *states["plain_f32"][:2]))
+                flips = step_sign_flips(tp_state, ref[1])
+            else:  # a plain step from the TP state before this step, as the CPU TP tests hold each step
+                with f32_forward():
+                    _m, _o, met = from_tp[2](from_tp[0], from_tp[1], bt)
+                ref = ({key: float(met[key]) for key in ("loss", "lr", "grad_norm")}, whole_state(cfg, _m, _o))
+                del from_tp, _m, _o
+            tp_check.append(compare_step((last("tp"), tp_state), ref, dev=dev, step=i + 1))
+            del tp_state, ref
+            if i + 1 < len(dp_batches):
+                tp_opts = TrainOptions(adamw=adamw)
+                from_tp = [*plain_copy(states["tp"], cfg, tp_opts, dev), make_train_step(cfg, tp_opts)]
+            torch.cuda.synchronize()
+            tp_s += time.perf_counter() - t0
+        timed = ("plain", "int16_ef", "bf16", "tp")
         for r in range(sh["dp_warm"]):  # more warm steps, timed only, the order reversed every round
             for kind in (timed if r % 2 == 0 else timed[::-1]):
                 runs[kind]["warm_ms"].append(take(kind, dp_batches[r % len(dp_batches)])[1])
@@ -1747,8 +1859,23 @@ def shard_phase(dev, cfg, oracle: "Oracle") -> dict:
                           err=[abs(a - b) for a, b in zip(runs[kind]["losses"], plain_losses)])
         assert all(e <= bd for e, bd in zip(runs[kind]["err"], bounds)), (kind, runs[kind], plain_losses)
         assert all(np.isfinite(runs[kind]["losses"])), runs[kind]
-    for kind in kinds[:3]:  # step 2 and the timed steps are warm
-        warm = [runs[kind]["step_ms"][-1]] + runs[kind]["warm_ms"]
+    # compare_step held every leaf after each step (step 1 from the seeded weights, step 2 against a plain step
+    # from the TP state after step 1); the losses are also held against the plain f32 run's, within 1e-4
+    tp, ref = runs["tp"], runs["plain_f32"]
+    tp.update(check=tp_check, plain_f32=ref, step1_sign_flips=flips,
+              step_err=[abs(c["loss"][0] - c["loss"][1]) for c in tp_check],
+              grad_norm_err=[abs(c["grad_norm"][0] - c["grad_norm"][1]) for c in tp_check],
+              max_rel_leaf_err=[max(c["max_rel_err_by_leaf"].values()) for c in tp_check],
+              err=[abs(a - b) for a, b in zip(tp["losses"], ref["losses"])],
+              bound=[TOL * abs(b) for b in ref["losses"]])
+    tp["max_abs_loss_diff"] = max(tp["err"])
+    print(f"shard: TP at world size 1, f32 activations, after each step from the same state: loss differences "
+          f"{tp['step_err']}, grad_norm differences {tp['grad_norm_err']}, the largest leaf error over max|leaf| "
+          f"{tp['max_rel_leaf_err']} (train_cases' bounds, every leaf held); against the plain run's losses "
+          f"{tp['err']} (bound {TOL} x |loss|); step 1's moments of opposite sign {flips}", flush=True)
+    assert all(e <= bd for e, bd in zip(tp["err"], tp["bound"])), (tp["err"], tp["bound"])
+    for kind in ("plain", "int16_ef", "bf16", "tp"):  # step 2 and the timed steps are warm (TP's step 2 is f32)
+        warm = ([] if kind == "tp" else [runs[kind]["step_ms"][-1]]) + runs[kind]["warm_ms"]
         runs[kind]["warm_ms_median"] = float(np.median(warm))
         runs[kind]["warm_ms_range"] = [min(warm), max(warm)]
     assert 2.0 <= wire["int16_ef"]["bytes_per_element"] < 2.01 and wire["bf16"]["bytes_per_element"] == 2.0, wire
@@ -1765,7 +1892,11 @@ def shard_phase(dev, cfg, oracle: "Oracle") -> dict:
          gather_ms=gather_ms, gather_share=gather_ms / sharded_ms, concat_ms=concat_ms,
          concat_share=concat_ms / sharded_ms,
          dp={"arch": LM_ARCH, "world_size": 1, "backend": "nccl", "batch": [sh["batch"], sh["seq"]],
-             "runs": runs, "wire": wire, "qmax": 32767},
+             "runs": {k: v for k, v in runs.items() if k not in tp_kinds}, "wire": wire, "qmax": 32767},
+         tp={"arch": LM_ARCH, "mesh": {"data": 1, "model": 1}, "world_size": 1, "backend": "nccl",
+             "rules": "Rules(seq_shard=True)", "run": tp, "seconds": tp_s,
+             "note": "one card cannot run TP over two devices: the DTensor path ran on a (1, 1) mesh; "
+                     "nothing ran on more than one card"},
          seconds=time.perf_counter() - t_phase)
     return {**launches, **{name: sum(runs[kind]["b6_launches"][name] for kind in kinds)
                            for name in ("ssd_intra", "ssd_intra_bwd")}}

@@ -6,6 +6,16 @@ a thread-installed :class:`Rules` maps them onto the dimensions of a
 ``torch.distributed.device_mesh.DeviceMesh`` as DTensor placements. With no
 rules installed (unit tests, one device), annotations do nothing.
 
+Tensor and sequence parallelism: :func:`distribute_model` turns a model's
+parameters into DTensors placed by :func:`param_shardings`; the batch then
+enters as a DTensor (``Rules.spec("tokens")``) and the model's torch ops
+run on DTensors, whose collectives DTensor issues. Where ``repro`` leaves
+XLA to regather, the port's kernel boundaries (``models.layers``,
+``ssm``, ``moe``) redistribute their inputs to whole heads
+(:func:`heads_layout`) and whole sequences and run the kernel, or its
+plain version, on each rank's shard through
+``torch.distributed.tensor.experimental.local_map``.
+
 Parameter placements come from the parameter's *name* by pattern
 (:func:`param_spec`, the reference's ``_PARAM_RULES`` table), so every
 architecture gets Megatron-style TP + EP without per-model tables. The
@@ -36,9 +46,11 @@ from typing import Optional
 import torch
 
 __all__ = [
-    "BLOCK_AXIS", "BlockMesh", "Rules", "all_reduce_axes", "axes_index", "axes_size", "block_axis_name",
-    "block_shard_count", "block_sharding", "block_spec", "block_specs", "current_rules", "install_rules",
-    "make_block_mesh", "param_shardings", "param_spec", "placements", "shard_act", "use_rules",
+    "BLOCK_AXIS", "BlockMesh", "Rules", "all_reduce_axes", "attention_split", "axes_index", "axes_size",
+    "batch_partial", "block_axis_name", "block_shard_count", "block_sharding", "block_spec", "block_specs",
+    "current_rules", "distribute_model", "full_params", "grad_placed", "heads_layout", "install_rules", "is_dtensor",
+    "make_block_mesh", "param_shardings", "param_spec", "placements", "row_out", "shard_act", "tp_rules", "use_rules",
+    "whole_seq",
 ]
 
 _state = threading.local()
@@ -253,10 +265,147 @@ def use_rules(rules: Optional[Rules]):
         install_rules(prev)
 
 
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def tp_rules(*tensors) -> Optional[Rules]:
+    """The installed rules when tensor parallelism is engaged for
+    ``tensors``: rules are installed and the first tensor is a DTensor;
+    else None (the plain path)."""
+    r = current_rules()
+    return r if r is not None and tensors and is_dtensor(tensors[0]) else None
+
+
+def heads_layout(rules: Rules, shape: tuple, head_dim: int, split: bool = True, batch: bool = True) -> tuple:
+    """Placements that give each rank whole heads of a tensor of ``shape``
+    whose dim ``head_dim`` counts heads: dim 0 (the batch, where ``batch``)
+    over the batch axes where their size divides it, the heads over the
+    model axis where ``split`` and the model size divides the head count,
+    every other dim whole (a sharded sequence is gathered: the kernels need
+    it all)."""
+    b = rules.batch()
+    bsize = axes_size(rules.mesh, b or ())
+    m = None if rules.pure_dp else rules.model_axis
+    part = [None] * len(shape)
+    if batch and b and shape[0] % bsize == 0:
+        part[0] = b
+    if split and m is not None and shape[head_dim] % axes_size(rules.mesh, (m,)) == 0:
+        part[head_dim] = m
+    return placements(tuple(part), rules.axis_names)
+
+
+def attention_split(rules: Rules, n_heads: int, n_kv_heads: int) -> tuple[bool, bool]:
+    """How the attention cores place heads on the model axis (size m):
+    (split_q, split_kv). m divides both head counts: both split. m divides
+    the H query heads and each rank's H/m fall in one KV group (H/KV a
+    multiple of H/m): the queries split and the KV heads stay whole (each
+    rank reads the one its queries share). Otherwise neither splits and
+    every model rank computes every head."""
+    m = 1 if rules.pure_dp else axes_size(rules.mesh, (rules.model_axis,))
+    if m == 1 or n_heads % m:
+        return False, False
+    if n_kv_heads % m == 0:
+        return True, True
+    return (n_heads // n_kv_heads) % (n_heads // m) == 0, False
+
+
+def batch_partial(pl: tuple, rows: tuple) -> tuple:
+    """The gradient placements of a tensor placed ``pl`` that a kernel
+    boundary (``local_map``) uses with every rank's own rows of the batch,
+    a tensor placed ``rows`` (the batch its dim 0): whole (``Replicate``) on
+    a mesh dim that shards the rows, its gradient is there a partial sum
+    (``Partial``) of each rank's rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    return tuple(Partial() if rp == Shard(0) and isinstance(p, Replicate) else p for p, rp in zip(pl, rows))
+
+
+def _seq_gathered(x, dim: int = 1):
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == dim else p for p in x.placements)
+    return x if pl == tuple(x.placements) else x.redistribute(x.device_mesh, pl)
+
+
+def whole_seq(x, dim: int = 1):
+    """``x`` with its sequence dim gathered whole where sequence
+    parallelism shards it (a plain tensor as it is): a block's input
+    projections then share one all-gather, where each product would
+    gather its own (Megatron's SP)."""
+    return x if tp_rules(x) is None else _seq_gathered(x, dim)
+
+
+class _GradFix(torch.autograd.Function):
+    """Forward the identity; backward ``fix`` applied to a DTensor gradient."""
+
+    @staticmethod
+    def forward(ctx, t, fix):
+        ctx.fix = fix
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.fix(g) if is_dtensor(g) else g), None
+
+
+def row_out(t):
+    """The output of a row-parallel product (a sum over the model axis)
+    before it meets the sequence-sharded residual stream. Forward it is
+    ``t``; its gradient, which DTensor hands back sharded on the sequence,
+    is gathered whole first, so that the product's backward does not
+    flatten (batch, sequence) over a sharded sequence: a strided shard,
+    which the card machine's DTensor (torch 2.11) cannot view. A plain
+    tensor passes as it is."""
+    return _GradFix.apply(t, _seq_gathered) if tp_rules(t) is not None and t.requires_grad else t
+
+
+def grad_placed(t):
+    """``t``, whose gradient is laid out as ``t`` is before it flows on.
+    DTensor hands a product's input gradient back in the layout the
+    product chose, which may split heads that ``t``'s reshape keeps whole
+    (12 heads of 64 over a model axis of 16); placed as ``t``, the reshape's
+    backward views whole heads. A plain tensor passes as it is."""
+    if tp_rules(t) is None or not t.requires_grad:
+        return t
+    mesh, pl = t.device_mesh, tuple(t.placements)
+    return _GradFix.apply(t, lambda g: g if tuple(g.placements) == pl else g.redistribute(mesh, pl))
+
+
+def distribute_model(model, rules: Rules):
+    """Make every parameter of ``model`` a DTensor on ``rules.mesh``, placed
+    as :func:`param_shardings` says, in place; returns ``model``. Every rank
+    passes the same full weights (drawn from one seed, or loaded alike) and
+    keeps a copy of its shard of them (a slice would keep the full tensor's
+    memory alive): nothing is sent."""
+    from torch import nn
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    places = param_shardings(dict(model.named_parameters()), rules)
+    for name, p in list(model.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner) if owner else model
+        dt = distribute_tensor(p.detach(), rules.mesh, places[name], src_data_rank=None)
+        dt = DTensor.from_local(dt.to_local().clone(), rules.mesh, dt.placements, run_check=False,
+                                shape=dt.shape, stride=dt.stride())
+        setattr(mod, leaf, nn.Parameter(dt, requires_grad=p.requires_grad))
+    return model
+
+
+def full_params(model) -> dict:
+    """{name: the full tensor} of ``model``'s parameters: DTensors gathered
+    whole (a collective: every rank calls it), plain tensors as they are.
+    The inverse of :func:`distribute_model`, for comparisons and saving."""
+    return {k: (p.full_tensor() if is_dtensor(p) else p).detach() for k, p in model.named_parameters()}
+
+
 def shard_act(x, name: str):
-    """Redistribute a DTensor activation to its logical placements; does
-    nothing without rules, for a plain tensor, an unknown name or a
-    partition longer than ``x``'s rank."""
+    """Redistribute a DTensor activation to its logical placements (a dim
+    the partition's axes do not divide stays whole, where XLA would pad
+    it: decode's batch of 1); does nothing without rules, for a plain
+    tensor, an unknown name or a partition longer than ``x``'s rank."""
     from torch.distributed.tensor import DTensor
 
     r = current_rules()
@@ -268,6 +417,8 @@ def shard_act(x, name: str):
         return x
     if len(part) > x.ndim:
         return x
+    part = tuple(None if ax is not None and x.shape[i] % axes_size(r.mesh, ax if isinstance(ax, tuple) else (ax,))
+                 else ax for i, ax in enumerate(part))  # a dim its axes do not divide stays whole
     return x.redistribute(r.mesh, placements(part, r.axis_names))
 
 

@@ -42,4 +42,9 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
 # NVIDIA H100 SXM data-sheet rates (per card) for roofline estimates
 H100_PEAK_FLOPS_BF16 = 989e12  # FLOP/s, dense bf16 tensor cores
 H100_HBM_BYTES_PER_S = 3.35e12  # B/s, HBM3
-H100_NVLINK_BYTES_PER_S = 450e9  # B/s each way (NVLink 4, 900 GB/s both ways)
+H100_NVLINK_BYTES_PER_S = 450e9  # B/s each way (NVLink 4, 900 GB/s both ways), inside a node
+#: GPUs an HGX / DGX H100 node joins by NVLink; ranks 8k..8k+7 share a node
+H100_GPUS_PER_NODE = 8
+#: B/s each way a GPU between nodes: one 400 Gb/s InfiniBand NDR port
+#: (ConnectX-7) a GPU, as a DGX H100 has
+H100_NODE_LINK_BYTES_PER_S = 50e9

@@ -24,6 +24,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import (attention_split, batch_partial, grad_placed, heads_layout, is_dtensor,
+                                              row_out, shard_act, tp_rules, whole_seq)
+
 F32 = torch.float32
 BF16 = torch.bfloat16
 
@@ -68,7 +71,8 @@ def cast_once(cache: dict, named: dict, dtype) -> dict:
             out[k] = v
             continue
         key = (k, dtype)
-        stamp = (v.data_ptr(), v._version)
+        base = v.to_local() if is_dtensor(v) else v  # a DTensor's own data_ptr is 0
+        stamp = (base.data_ptr(), base._version)
         hit = cache.get(key)
         if hit is None or hit[0] != stamp:
             hit = (stamp, v.detach().to(dtype))
@@ -121,8 +125,8 @@ def mrope_sections(head_dim: int, sections) -> torch.Tensor:
     rotary pairs: ``sections[i]`` pairs of stream i, cut to head_dim/2
     entries, or filled up with the last stream's index (as
     ``jnp.repeat(arange(3), sections, total_repeat_length=Dh // 2)``)."""
-    sec = torch.repeat_interleave(torch.arange(3), torch.as_tensor(tuple(sections)))[: head_dim // 2]
-    return torch.cat([sec, sec[-1:].expand(head_dim // 2 - sec.numel())])
+    sec = [i for i, n in enumerate(sections) for _ in range(n)][: head_dim // 2]
+    return torch.tensor(sec + sec[-1:] * (head_dim // 2 - len(sec)))
 
 
 def mrope_apply(x: torch.Tensor, positions3: torch.Tensor, theta: float, sections) -> torch.Tensor:
@@ -158,12 +162,26 @@ def attn_init(gen: torch.Generator, cfg, dtype=F32) -> dict:
 
 def qkv_project(p: dict, x: torch.Tensor, cfg):
     """(q (B,S,H,Dh), k (B,S,KV,Dh), v (B,S,KV,Dh)) in ``x``'s dtype."""
-    B, S, _ = x.shape
-    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    x = whole_seq(x)
     q, k, v = x @ p["wq"].to(x.dtype), x @ p["wk"].to(x.dtype), x @ p["wv"].to(x.dtype)
     if cfg.qkv_bias:
         q, k, v = q + p["bq"].to(x.dtype), k + p["bk"].to(x.dtype), v + p["bv"].to(x.dtype)
-    return q.reshape(B, S, H, Dh), k.reshape(B, S, KV, Dh), v.reshape(B, S, KV, Dh)
+    return split_heads(q, cfg, "q"), split_heads(k, cfg, "kv"), split_heads(v, cfg, "kv")
+
+
+def split_heads(t, cfg, which: str):
+    """A projection t (B, S, n·Dh) as (B, S, n, Dh), n the configuration's
+    query heads (``which`` "q") or KV heads ("kv"). Under tensor
+    parallelism the columns are first laid out on whole heads, as the
+    attention cores take them (``sharding.attention_split``): a model axis
+    that does not divide the heads would split one (qwen2-1.5b's 12 query
+    heads of 128 over 16 ranks: 96 columns a rank)."""
+    n = cfg.n_heads if which == "q" else cfg.n_kv_heads
+    r = tp_rules(t)
+    if r is not None:
+        split = attention_split(r, cfg.n_heads, cfg.n_kv_heads)[0 if which == "q" else 1]
+        t = t.redistribute(r.mesh, heads_layout(r, t.shape, 2, split))
+    return t.reshape(t.shape[0], t.shape[1], n, cfg.head_dim)
 
 
 def _pick_chunk(S: int, chunk: int) -> int:
@@ -295,6 +313,62 @@ def causal_flash(q, k, v, chunk: int = 1024, bidirectional: bool = False) -> tor
     return _flash_fwd_impl(q, k, v, chunk, bidirectional)[0]
 
 
+def _rows(positions3, q):
+    """M-RoPE positions for q's rows: a rank's rows of the batch under
+    tensor parallelism (every row of ``_mrope_positions`` is the same)."""
+    return positions3 if positions3 is None else positions3[: q.shape[0]]
+
+
+def _kv_of(k, v, head):
+    """k and v, or their KV head ``head`` alone (:func:`_per_head`)."""
+    return (k, v) if head is None else (k[:, :, head:head + 1], v[:, :, head:head + 1])
+
+
+def _per_head(core, q, k, v, *caches, n_out: int = 3):
+    """``core(q, k, v, *caches, head)`` -> a tuple of (q-shaped output,
+    k-like and v-like outputs...), on whole heads.
+
+    On plain tensors, or without rules, it is ``core(q, k, v, *caches,
+    None)``.
+    Under tensor parallelism (q a DTensor, rules installed) q, k and v
+    (B, S, heads, Dh) are redistributed so that each rank holds whole heads
+    and whole sequences (the core needs both), and ``core`` runs on each
+    rank's shard through ``local_map``. The heads split as
+    ``sharding.attention_split`` says: q, k and v all by heads; or q by
+    heads with k and v whole, ``head`` then the KV head the rank's queries
+    read (their gradients summed over the model axis); or none, every model
+    rank computing every head.
+    ``caches`` (B, T, KV, Dh), which ``core`` writes into, must already be
+    laid out as k is (``heads_layout``): a redistributed copy would take
+    the writes. ``core`` returns ``n_out`` tensors: the first is placed as
+    q, the others as k."""
+    r = tp_rules(q)
+    if r is None:
+        return core(q, k, v, *caches, None)
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    H, KV = q.shape[2], k.shape[2]
+    split_q, split_kv = attention_split(r, H, KV)
+    qp = heads_layout(r, q.shape, 2, split_q)
+    kp = heads_layout(r, k.shape, 2, split_kv)
+    kg, head = kp, None
+    if split_q and not split_kv:
+        mi = r.axis_names.index(r.model_axis)
+        kg = tuple(Partial() if i == mi else pl for i, pl in enumerate(kp))
+        head = r.mesh.get_local_rank(r.model_axis) * (H // r.mesh.size(mi)) // (H // KV)
+    for c in caches:
+        if tuple(c.placements) != kp:
+            raise ValueError(f"a KV cache laid out as {tuple(c.placements)} under tensor parallelism; "
+                             f"the attention writes it on whole heads, {kp}")
+    q, k, v = (t.redistribute(r.mesh, pl) for t, pl in ((q, qp), (k, kp), (v, kp)))
+    n_in = 3 + len(caches)
+    fn = local_map(lambda *a: core(*a, head), out_placements=(qp,) + (kp,) * (n_out - 1),
+                   in_placements=(qp,) + (kp,) * (n_in - 1), in_grad_placements=(qp,) + (kg,) * (n_in - 1),
+                   device_mesh=r.mesh)
+    return fn(q, k, v, *caches)
+
+
 def _rope_qk(q, k, positions, positions3, cfg):
     """q and k turned as the configuration asks: not at all with learned
     positions (the encoder-decoder adds them to its inputs), by M-RoPE at
@@ -315,20 +389,24 @@ def attention_train(p: dict, x, cfg, positions=None, positions3=None, chunk: int
     rotation, as a prefill caches them."""
     B, S, _ = x.shape
     q, k, v = qkv_project(p, x, cfg)
-    pos = positions if positions is not None else torch.arange(S, device=x.device)[None, :]
-    q, k = _rope_qk(q, k, pos, positions3, cfg)
-    o = causal_flash(q, k, v, chunk, bidirectional)
-    out = o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+
+    def core(q, k, v, head):
+        pos = positions if positions is not None else torch.arange(S, device=q.device)[None, :]
+        q, k = _rope_qk(q, k, pos, _rows(positions3, q), cfg)
+        return (causal_flash(q, *_kv_of(k, v, head), chunk, bidirectional), k, v)
+
+    o, k, v = _per_head(core, q, k, v)
+    o = shard_act(grad_placed(o.reshape(B, S, -1)), "act_heads")
+    out = row_out(o @ p["wo"].to(x.dtype))
     return (out, (k, v)) if collect_kv else out
 
 
 def cross_kv(p: dict, kv_out, cfg):
     """The cross attention's keys and values of the encoder output kv_out
     (B, T, d): (k, v), each (B, T, KV, Dh) in kv_out's dtype, no bias."""
-    B, T, _ = kv_out.shape
-    KV, Dh = cfg.n_kv_heads, cfg.head_dim
-    return ((kv_out @ p["wk"].to(kv_out.dtype)).reshape(B, T, KV, Dh),
-            (kv_out @ p["wv"].to(kv_out.dtype)).reshape(B, T, KV, Dh))
+    kv_out = whole_seq(kv_out)
+    return (split_heads(kv_out @ p["wk"].to(kv_out.dtype), cfg, "kv"),
+            split_heads(kv_out @ p["wv"].to(kv_out.dtype), cfg, "kv"))
 
 
 def cross_attention(p: dict, x, kv_out, cfg, kv=None):
@@ -338,10 +416,15 @@ def cross_attention(p: dict, x, kv_out, cfg, kv=None):
     :func:`_full_attn`, as in the JAX package. ``kv``: ``cross_kv(p,
     kv_out, cfg)`` where the caller has it already (a prefill caches it)."""
     B, S, _ = x.shape
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    q = split_heads(whole_seq(x) @ p["wq"].to(x.dtype), cfg, "q")
     k, v = cross_kv(p, kv_out, cfg) if kv is None else kv
-    o = causal_flash(q, k, v, min(1024, S), True) if S == k.shape[1] else _full_attn(q, k, v)
-    return o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+
+    def core(q, k, v, head):
+        k, v = _kv_of(k, v, head)
+        return (causal_flash(q, k, v, min(1024, S), True) if S == k.shape[1] else _full_attn(q, k, v),)
+
+    (o,) = _per_head(core, q, k, v, n_out=1)
+    return row_out(grad_placed(o.reshape(B, S, -1)) @ p["wo"].to(x.dtype))
 
 
 def _full_attn(q, k, v):
@@ -363,20 +446,24 @@ def attention_decode(p: dict, x, cache_k, cache_v, cur_index: int, cfg, position
     ``cache_k`` / ``cache_v`` themselves (the JAX package returns updated
     copies); keys past ``cur_index`` are masked. Returns (out (B, 1, d),
     cache_k, cache_v)."""
-    B = x.shape[0]
-    T = cache_k.shape[1]
-    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = qkv_project(p, x, cfg)
-    pos = positions if positions is not None else torch.full((B, 1), cur_index, device=x.device)
-    q, k = _rope_qk(q, k, pos, positions3, cfg)
-    cache_k[:, cur_index] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, cur_index] = v[:, 0].to(cache_v.dtype)
-    qg = q.reshape(B, KV, H // KV, Dh).to(F32)
-    s = (qg @ cache_k.to(F32).permute(0, 2, 3, 1)) / math.sqrt(Dh)  # (B, KV, G, T)
-    valid = torch.arange(T, device=x.device) <= cur_index
-    a = torch.softmax(s.masked_fill(~valid, -math.inf), dim=-1)
-    o = a.to(cache_v.dtype).to(F32) @ cache_v.to(F32).permute(0, 2, 1, 3)  # (B, KV, G, Dh)
-    o = o.reshape(B, 1, H * Dh).to(x.dtype)
+
+    def core(q, k, v, cache_k, cache_v, head):
+        B, T = q.shape[0], cache_k.shape[1]
+        pos = positions if positions is not None else torch.full((B, 1), cur_index, device=q.device)
+        q, k = _rope_qk(q, k, pos, _rows(positions3, q), cfg)
+        cache_k[:, cur_index] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, cur_index] = v[:, 0].to(cache_v.dtype)
+        ck, cv = _kv_of(cache_k, cache_v, head)
+        H, KV, Dh = q.shape[2], ck.shape[2], q.shape[3]
+        qg = q.reshape(B, KV, H // KV, Dh).to(F32)
+        s = (qg @ ck.to(F32).permute(0, 2, 3, 1)) / math.sqrt(Dh)  # (B, KV, G, T)
+        valid = torch.arange(T, device=q.device) <= cur_index
+        a = torch.softmax(s.masked_fill(~valid, -math.inf), dim=-1)
+        o = a.to(cv.dtype).to(F32) @ cv.to(F32).permute(0, 2, 1, 3)  # (B, KV, G, Dh)
+        return (o.reshape(B, 1, H * Dh).to(q.dtype),)
+
+    (o,) = _per_head(core, q, k, v, cache_k, cache_v, n_out=1)
     return o @ p["wo"].to(x.dtype), cache_k, cache_v
 
 
@@ -385,7 +472,12 @@ def cached_cross(q, xk, xv):
     the cached encoder keys and values xk, xv (B, T, KV, Dh), with no mask
     (the JAX package's ``_cached_cross``: slots past the encoder's frames,
     zeros in a prefill's cache, take part too). Returns (B, 1, H·Dh) in q's
-    dtype."""
+    dtype; on each rank's whole heads under tensor parallelism."""
+    (o,) = _per_head(lambda q, k, v, head: (_cached_cross(q, *_kv_of(k, v, head)),), q, xk, xv, n_out=1)
+    return o
+
+
+def _cached_cross(q, xk, xv):
     B, _, H, Dh = q.shape
     KV = xk.shape[2]
     qg = q.reshape(B, KV, H // KV, Dh).to(F32)
@@ -406,9 +498,11 @@ def mlp_init(gen: torch.Generator, d: int, ff: int, gated: bool, dtype=F32) -> d
 
 
 def mlp_apply(p: dict, x, act: str, gated: bool):
+    x = whole_seq(x)
     u = x @ p["up"].to(x.dtype)
     h = _act(x @ p["gate"].to(x.dtype), act) * u if gated else _act(u, act)
-    return h @ p["down"].to(x.dtype)
+    h = shard_act(h, "act_ff")
+    return row_out(h @ p["down"].to(x.dtype))
 
 
 def _act(x, name: str):
@@ -426,14 +520,96 @@ def _act(x, name: str):
 # losses
 # --------------------------------------------------------------------------
 
+def _vocab_shard(r, t) -> int:
+    """The rows of the vocabulary each model rank holds where ``t``'s last
+    dim (a vocabulary) is sharded over the model axis; 0 where it is not."""
+    from torch.distributed.tensor import Shard
+
+    if r is None or r.pure_dp:
+        return 0
+    mi = r.axis_names.index(r.model_axis)
+    return t.shape[-1] // r.mesh.size(mi) if t.placements[mi] == Shard(t.ndim - 1) else 0
+
+
+def _model_placed(r, pl: tuple, model) -> tuple:
+    mi = r.axis_names.index(r.model_axis)
+    return tuple(model if i == mi else p for i, p in enumerate(pl))
+
+
+def _lse_ll(lf, labels):
+    """(logsumexp, the labels' logits) of f32 logits lf (..., V)."""
+    return torch.logsumexp(lf, dim=-1), torch.gather(lf, -1, labels.to(torch.int64)[..., None])[..., 0]
+
+
+def _xent_terms(lf, labels):
+    """:func:`_lse_ll`; under tensor parallelism on each rank's rows
+    (DTensor would gather the logits whole for the gather). With the
+    vocabulary sharded over the model axis (``act_btv``), Megatron's
+    vocab-parallel cross-entropy: each rank takes the max of its slice
+    (reduced by max over the model axis), its sum of exp, and its labels'
+    logits (zeros for labels out of its slice); the sums are left
+    ``Partial`` for the ops that follow."""
+    r = tp_rules(lf)
+    if r is None:
+        return _lse_ll(lf, labels)
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = tuple(lf.placements)
+    vocab = _vocab_shard(r, lf)
+    if not vocab:
+        return local_map(_lse_ll, out_placements=(pl, pl), in_placements=(pl, pl),
+                         device_mesh=r.mesh)(lf, labels.redistribute(r.mesh, pl))
+    whole = _model_placed(r, pl, Replicate())
+    lo = r.mesh.get_local_rank(r.model_axis) * vocab
+    m = local_map(lambda lf: lf.detach().amax(-1), out_placements=(_model_placed(r, pl, Partial("max")),),
+                  in_placements=(pl,), device_mesh=r.mesh)(lf).redistribute(r.mesh, whole)
+
+    def local(lf, labels, m):
+        idx = labels.to(torch.int64) - lo
+        ok = (idx >= 0) & (idx < vocab)
+        g = torch.gather(lf, -1, torch.clamp(idx, 0, vocab - 1)[..., None])[..., 0]
+        return torch.exp(lf - m[..., None]).sum(-1), torch.where(ok, g, 0.0)
+
+    part = _model_placed(r, pl, Partial())
+    se, ll = local_map(local, out_placements=(part, part), in_placements=(pl, whole, whole),
+                       device_mesh=r.mesh)(lf, labels.redistribute(r.mesh, whole), m)
+    return torch.log(se) + m, ll
+
+
+def vocab_parallel_embed(w, tokens):
+    """``w[tokens]`` for an embedding ``w`` (V, d) whose vocabulary rows are
+    sharded over the model axis, or None where tensor parallelism does not
+    shard them: each rank looks up the tokens in its rows (zeros for the
+    others) and the sum over the model axis is left ``Partial``
+    (Megatron's vocab-parallel embedding)."""
+    r = tp_rules(w)
+    rows = _vocab_shard(r, w.T) if r is not None else 0
+    if not rows or not is_dtensor(tokens):
+        return None
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    lo = r.mesh.get_local_rank(r.model_axis) * rows
+    tp = _model_placed(r, tuple(tokens.placements), Replicate())
+
+    def local(w, tokens):
+        idx = tokens.to(torch.int64) - lo
+        ok = (idx >= 0) & (idx < rows)
+        return w[torch.clamp(idx, 0, rows - 1)] * ok[..., None].to(w.dtype)
+
+    out = _model_placed(r, tp, Partial())
+    return local_map(local, out_placements=(out,), in_placements=(tuple(w.placements), tp),
+                     in_grad_placements=(batch_partial(tuple(w.placements), tp), tp),
+                     device_mesh=r.mesh)(w, tokens.redistribute(r.mesh, tp))
+
+
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, mask: Optional[torch.Tensor] = None,
                  z_loss: float = 0.0) -> torch.Tensor:
     """Stable cross-entropy in f32; logits (..., V), labels (...) of any
     integer type (the token pipeline yields int32; the gather takes an int64
     copy). With ``mask``, the masked mean over at least one position."""
-    lf = logits.to(F32)
-    lse = torch.logsumexp(lf, dim=-1)
-    ll = torch.gather(lf, -1, labels.to(torch.int64)[..., None])[..., 0]
+    lse, ll = _xent_terms(logits.to(F32), labels)
     loss = lse - ll
     if z_loss:
         loss = loss + z_loss * lse**2

@@ -48,13 +48,16 @@ its patches or frames, a prefill longer than its cache), the port raises
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.core.decode_torch import resolve_device
+from repro_torch.distributed.sharding import current_rules, is_dtensor, shard_act, use_rules, whole_seq
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
@@ -207,7 +210,7 @@ class DecLayer(nn.Module):
                                      cache["v"][i], cur_index, cfg)
         x = x + h
         xp = self.xattn.params(x.dtype)
-        q = (_norm(self.ln2, x, cfg) @ xp["wq"]).reshape(x.shape[0], 1, cfg.n_heads, cfg.head_dim)
+        q = L.split_heads(_norm(self.ln2, x, cfg) @ xp["wq"], cfg, "q")
         x = x + L.cached_cross(q, cache["xk"][i], cache["xv"][i]) @ xp["wo"]
         return self._mlp(x, cfg)
 
@@ -312,11 +315,12 @@ def init_params(gen: torch.Generator, cfg, *, device="cuda") -> _LM:
 
 
 def _embed(model: _LM, tokens, dtype):
-    return model.embed[tokens].to(dtype)
+    x = L.vocab_parallel_embed(model.embed, tokens)
+    return (model.embed[tokens] if x is None else x).to(dtype)
 
 
 def _head(model: _LM, x):
-    return x @ model.head_weight(x.dtype)
+    return shard_act(whole_seq(x) @ model.head_weight(x.dtype), "act_btv")
 
 
 def _mrope_positions(cfg, B: int, S_img: int, S_text: int, device="cpu") -> torch.Tensor:
@@ -328,7 +332,8 @@ def _mrope_positions(cfg, B: int, S_img: int, S_text: int, device="cpu") -> torc
     side = max(int(S_img ** 0.5), 1)
     i = torch.arange(S_img)
     img = torch.stack([torch.zeros_like(i), i // side, i % side])
-    t = torch.arange(S_text) + max(int(img.max()) + 1, 1)
+    top = max((S_img - 1) // side, min(S_img, side) - 1)  # img.max(), from the shapes (no host sync)
+    t = torch.arange(S_text) + max(top + 1, 1)
     pos = torch.cat([img, torch.stack([t, t, t])], dim=1)
     return pos[None].expand(B, 3, S_img + S_text).to(device)
 
@@ -365,6 +370,13 @@ _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 def _dots_policy(ctx, op, *args, **kwargs):
     return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+@contextlib.contextmanager
+def _under(rules, ctx):
+    """``ctx`` with ``rules`` installed in the thread that enters it."""
+    with use_rules(rules), ctx:
+        yield
 
 
 def _block(layer, x, cfg, chunk, extra=None):
@@ -407,6 +419,15 @@ def forward(model: _LM, cfg, tokens, *, patch_embeds=None, frames=None, remat: b
     kw = {}
     if remat_policy == "dots":
         kw["context_fn"] = lambda: create_selective_checkpoint_contexts(_dots_policy)
+    rules = current_rules()
+    if rules is not None and ckpt:  # the recompute may run on autograd's device thread, which has no rules
+        contexts = kw.get("context_fn", lambda: (contextlib.nullcontext(), contextlib.nullcontext()))
+
+        def with_rules():
+            fwd, rec = contexts()
+            return fwd, _under(rules, rec)
+
+        kw["context_fn"] = with_rules
 
     def run(layer, x, extra=None):
         if not ckpt:
@@ -414,31 +435,33 @@ def forward(model: _LM, cfg, tokens, *, patch_embeds=None, frames=None, remat: b
         return checkpoint(_block, layer, x, cfg, chunk, extra, use_reentrant=False, **kw)
 
     if cfg.family == "encdec":
-        enc_out = _enc_inputs(model, cfg, frames, dtype)
+        enc_out = shard_act(_enc_inputs(model, cfg, frames, dtype), "act_btd")
         for layer in model.enc_layers:
-            enc_out = run(layer, enc_out)
-        x = _dec_inputs(model, tokens, dtype)
+            enc_out = shard_act(run(layer, enc_out), "act_btd")
+        x = shard_act(_dec_inputs(model, tokens, dtype), "act_btd")
         for layer in model.dec_layers:
-            x = run(layer, x, enc_out)
+            x = shard_act(run(layer, x, enc_out), "act_btd")
         return _head(model, _norm(model.enc_norm_f, x, cfg)), 0.0
     x = _embed(model, tokens, dtype)
     pos3 = None
     if cfg.family == "vlm":
         x, pos3 = _vlm_inputs(cfg, x, patch_embeds, dtype)
+    x = shard_act(x, "act_btd")
     aux_total = 0.0
     if cfg.family == "hybrid":
         for group in model.layers:
             for layer in group:
-                x = run(layer, x)
-            x = model.shared_attn(x, cfg, chunk)
+                x = shard_act(run(layer, x), "act_btd")
+            x = shard_act(model.shared_attn(x, cfg, chunk), "act_btd")
     elif cfg.family == "moe":
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer in model.layers:
             x, aux = run(layer, x)
+            x = shard_act(x, "act_btd")
             aux_total = aux_total + aux
     else:
         for layer in model.layers:
-            x = run(layer, x, pos3)
+            x = shard_act(run(layer, x, pos3), "act_btd")
     x = rmsnorm(x, model.norm_f, cfg.norm_eps)
     if cfg.family == "vlm":
         x = x[:, -tokens.shape[1]:]
@@ -481,7 +504,11 @@ def _write_states(sc: dict, states: list) -> None:
     """Every Mamba2 layer's new state, in layer order, into the stacked
     cache tensors ``sc`` (one copy a key)."""
     for k, v in sc.items():  # every layer has read its old state by now
-        torch.stack([st[k] for st in states], out=v.view(len(states), *v.shape[v.dim() - states[0][k].dim():]))
+        new = [st[k] for st in states]
+        if is_dtensor(v):  # DTensor has no stack with out=
+            v.copy_(torch.stack(new).view(v.shape))
+        else:
+            torch.stack(new, out=v.view(len(states), *v.shape[v.dim() - new[0].dim():]))
 
 
 @torch.no_grad()
@@ -526,10 +553,7 @@ def decode_step(model: _LM, cfg, token, cache, cur_index: int, *, dtype=BF16):
 def _padded(parts: list, max_len: int) -> torch.Tensor:
     """The layers' (B, n, KV, Dh) tensors stacked as (L, B, max_len, KV, Dh),
     zeros after position n."""
-    t0 = parts[0]
-    buf = torch.zeros((len(parts), t0.shape[0], max_len) + t0.shape[2:], dtype=t0.dtype, device=t0.device)
-    buf[:, :, :t0.shape[1]] = torch.stack(parts)
-    return buf
+    return F.pad(torch.stack(parts), (0, 0, 0, 0, 0, max_len - parts[0].shape[1]))
 
 
 @torch.no_grad()
@@ -560,28 +584,33 @@ def prefill(model: _LM, cfg, tokens, max_len: Optional[int] = None, *, patch_emb
         raise ValueError(f"{cfg.name}: a prefill of {what.get(cfg.family, f'{S_} tokens')} "
                          f"does not fit a cache of max_len {max_len}")
     if cfg.family == "encdec":
+        enc_out = shard_act(enc_out, "act_btd")
         for layer in model.enc_layers:
-            enc_out = layer(enc_out, cfg, chunk)
-        x = _dec_inputs(model, tokens, dtype)
+            enc_out = shard_act(layer(enc_out, cfg, chunk), "act_btd")
+        x = shard_act(_dec_inputs(model, tokens, dtype), "act_btd")
         for layer in model.dec_layers:
             x, kv = layer(x, cfg, chunk, enc_out, collect_kv=True)
+            x = shard_act(x, "act_btd")
             kvs.append(kv)
         x = _norm(model.enc_norm_f, x, cfg)
         cache = {name: _padded([kv[j] for kv in kvs], max_len) for j, name in enumerate(("k", "v", "xk", "xv"))}
         return _head(model, x[:, -1:]), cache
+    x = shard_act(x, "act_btd")
     if cfg.family in ("dense", "vlm", "moe"):
         for layer in model.layers:
             out = layer(x, cfg, chunk, collect_kv=True, positions3=pos3)  # (x, kv), or the moe block's (x, aux, kv)
-            x = out[0]
+            x = shard_act(out[0], "act_btd")
             kvs.append(out[-1])
     else:
         hybrid = cfg.family == "hybrid"
         for group in (model.layers if hybrid else [model.layers]):
             for layer in group:
                 x, st = layer(x, cfg)
+                x = shard_act(x, "act_btd")
                 states.append(st)
             if hybrid:
                 x, kv = model.shared_attn(x, cfg, chunk, collect_kv=True)
+                x = shard_act(x, "act_btd")
                 kvs.append(kv)
     x = rmsnorm(x, model.norm_f, cfg.norm_eps)
     cache = {}

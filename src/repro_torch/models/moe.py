@@ -50,7 +50,7 @@ import math
 import torch
 from torch import nn
 
-from repro_torch.distributed.sharding import axes_size, current_rules
+from repro_torch.distributed.sharding import axes_size, batch_partial, current_rules, tp_rules, whole_seq
 from repro_torch.models import layers as L
 from repro_torch.models.layers import F32, cast_once
 
@@ -210,6 +210,8 @@ def moe_apply(p: dict, x: torch.Tensor, cfg):
     With sharding rules installed, ``x`` is this rank's rows of the global
     batch and the expert-parallel path runs (module docstring); ``p`` holds
     all ``E`` experts and each rank takes its slice."""
+    if tp_rules(x) is not None:
+        return _moe_tp(p, x, cfg)
     B, S, _d = x.shape
     E, k = cfg.n_experts, cfg.moe_top_k
     probs, top_w, top_e = route(p, x, cfg)
@@ -240,6 +242,58 @@ def moe_apply(p: dict, x: torch.Tensor, cfg):
     if cfg.n_shared_experts:
         y = y + L.mlp_apply(p["shared"], x, cfg.act, gated=True)
     return y, aux
+
+
+def _moe_tp(p: dict, x, cfg):
+    """:func:`moe_apply` under tensor parallelism: ``x`` a DTensor (B, S, d)
+    and ``p`` DTensor parameters (the experts sharded over the model axis,
+    EP; the shared experts' MLP by columns, TP; the router whole). Each
+    rank routes its rows of the batch over the whole sequence (a row's
+    capacity counts all of it), runs its experts' dispatch and its columns
+    of the shared experts, and the partial outputs are left ``Partial``
+    over the model axis; the aux loss's two means are partial sums over the
+    batch axes, multiplied once DTensor has reduced them (the global
+    batch's, as on one device)."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    r = tp_rules(x)
+    E, k = cfg.n_experts, cfg.moe_top_k
+    x = whole_seq(x)
+    B, S, _d = x.shape
+    mi = r.axis_names.index(r.model_axis)
+    w = p["experts"]
+    e_local = w["up"].to_local().shape[0]
+    off = 0 if e_local == E else r.mesh.get_local_rank(r.model_axis) * e_local
+    shared = [p["shared"][n] for n in ("gate", "up", "down")] if cfg.n_shared_experts else []
+    # split: each model rank holds other experts (or shared columns), so y
+    # and every gradient of the rank's inputs are partial sums over the
+    # model axis; the aux means then count 1/m of each rank's rows, so that
+    # their gradients sum over the model axis alike
+    split = e_local < E or any(t.placements[mi] != Replicate() for t in shared)
+    m = r.mesh.size(mi) if split else 1
+
+    def local(x, router, wg, wu, wd, *sh):
+        probs, top_w, top_e = route({"router": router}, x, cfg)
+        me = probs.sum(dim=(0, 1)) / (B * S * m)
+        counts = torch.zeros(E, dtype=F32, device=x.device).index_add_(
+            0, top_e.reshape(-1), torch.ones(top_e.numel(), dtype=F32, device=x.device)) / (B * S * k * m)
+        y = _dispatch_ffn(x, top_e, top_w, wg, wu, wd, cfg, off, e_local)
+        if sh:
+            y = y + L.mlp_apply(dict(zip(("gate", "up", "down"), sh)), x, cfg.act, gated=True)
+        return y, me, counts
+
+    def on_model(pl):
+        return tuple(Partial() if i == mi and split and isinstance(q, Replicate) else q for i, q in enumerate(pl))
+
+    xp = tuple(x.placements)
+    mp = on_model(batch_partial(tuple(Replicate() for _ in xp), xp))
+    args = (x, p["router"], w["gate"], w["up"], w["down"], *shared)
+    lay = tuple(tuple(t.placements) for t in args)
+    grads = (on_model(xp),) + tuple(on_model(batch_partial(pl, xp)) for pl in lay[1:])
+    y, me, counts = local_map(local, out_placements=(on_model(xp), mp, mp), in_placements=lay,
+                              in_grad_placements=grads, device_mesh=r.mesh)(*args)
+    return y, E * torch.sum(me * counts)
 
 
 __all__ = ["MoE", "moe_init", "expert_capacity", "route", "dropped_pairs", "moe_apply"]

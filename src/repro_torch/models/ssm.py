@@ -8,7 +8,11 @@ constant-size state update (no KV cache).
 :func:`ssd_chunked` is the model's own reference (``kernels.ref.ssd_ref``).
 :func:`ssm_forward` runs the SSD through ``kernels.ops.ssd``, which launches
 the intra-chunk CUDA kernel (B6) for CUDA tensors and takes its plain
-version for CPU tensors.
+version for CPU tensors. Under tensor parallelism (DTensor parameters,
+rules installed) ``x`` and ``z`` are placed as ``act_ff`` (the reference's
+points) and ``ops.ssd`` runs on each rank's whole heads and whole sequence
+through ``local_map`` (:func:`_ssd`); B and C (``ssm_groups`` of them,
+replicated) are repeated over the heads before the split.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.decode_torch import resolve_device
+from repro_torch.distributed.sharding import batch_partial, heads_layout, row_out, shard_act, tp_rules, whole_seq
 from repro_torch.kernels import ops
 from repro_torch.models.layers import F32, Params, dense_init, rmsnorm
 
@@ -61,7 +66,11 @@ class Mamba2Mixer(Params):
 
 def _causal_conv(x, w, state=None):
     """Depthwise causal conv; x: (B, S, C), w: (W, C). With ``state``
-    ((B, W-1, C) trailing context) for decode continuation."""
+    ((B, W-1, C) trailing context) for decode continuation. Under tensor
+    parallelism it runs on each rank's rows and channels (:func:`_conv_tp`)."""
+    r = tp_rules(x)
+    if r is not None:
+        return _conv_tp(r, x, w, state)
     W = w.shape[0]
     if state is None:
         pad = torch.zeros((x.shape[0], W - 1, x.shape[2]), dtype=x.dtype, device=x.device)
@@ -72,6 +81,26 @@ def _causal_conv(x, w, state=None):
     out = sum(xp[:, t : t + S, :] * w[t].to(x.dtype) for t in range(W))
     new_state = xp[:, -(W - 1) :, :] if W > 1 else None
     return F.silu(out), new_state
+
+
+def _conv_tp(r, x, w, state):
+    """:func:`_causal_conv` of a DTensor x (B, S, C) through ``local_map``:
+    each rank convolves its rows and its channels (x's channels and w's
+    columns sharded alike over the model axis, or both whole) over the
+    whole sequence, from its slice of ``state``."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    xl = tuple(p if p in (Shard(0), Shard(2)) else Replicate() for p in x.placements)
+    wl = tuple(Shard(1) if p == Shard(2) else Replicate() for p in xl)
+    args, lay = [x, w], [xl, wl]
+    if state is not None:
+        args, lay = args + [state], lay + [xl]
+    n_out = 2 if w.shape[0] > 1 else 1
+    fn = local_map(lambda *a: _causal_conv(*a)[:n_out], out_placements=(xl,) * n_out, in_placements=tuple(lay),
+                   in_grad_placements=(xl, batch_partial(wl, xl), *lay[2:]), device_mesh=r.mesh)
+    out = fn(*(t.redistribute(r.mesh, pl) for t, pl in zip(args, lay)))
+    return out[0], (out[1] if n_out == 2 else None)
 
 
 def ssd_chunked(x, dt, A, B_, C_, chunk: int, state0=None):
@@ -114,6 +143,28 @@ def ssd_chunked(x, dt, A, B_, C_, chunk: int, state0=None):
     return y.to(x.dtype), state
 
 
+def _ssd(x, dt, A, B_, C_, chunk: int, state0=None):
+    """``ops.ssd``; under tensor parallelism on each rank's whole heads
+    (x (B,S,H,P), dt (B,S,H), A (H,), B_ and C_ (B,S,H,N), the state
+    (B,H,P,N)) and whole sequence, through ``local_map``."""
+    r = tp_rules(x)
+    if r is None:
+        return ops.ssd(x, dt, A, B_, C_, chunk, state0)
+    from torch.distributed.tensor.experimental import local_map
+
+    lay = [heads_layout(r, x.shape, 2), heads_layout(r, dt.shape, 2), heads_layout(r, A.shape, 0, batch=False),
+           heads_layout(r, B_.shape, 2), heads_layout(r, C_.shape, 2)]
+    st = heads_layout(r, (x.shape[0], x.shape[2], x.shape[3], B_.shape[3]), 1)
+    args = [x, dt, A, B_, C_] + ([] if state0 is None else [state0])
+    lay += [] if state0 is None else [st]
+    args = [t.redistribute(r.mesh, pl) for t, pl in zip(args, lay)]
+    grad = list(lay)
+    grad[2] = batch_partial(lay[2], lay[0])  # A has no batch dim
+    fn = local_map(lambda *a: ops.ssd(*a[:5], chunk, *a[5:]), out_placements=(lay[0], st),
+                   in_placements=tuple(lay), in_grad_placements=tuple(grad), device_mesh=r.mesh)
+    return fn(*args)
+
+
 def ssm_forward(p, xin, cfg, state=None):
     """Full Mamba2 block. xin: (B, S, d); ``p`` as :meth:`Mamba2Mixer.params`
     (or a dict of tensors under the same names). ``state`` (decode
@@ -123,10 +174,13 @@ def ssm_forward(p, xin, cfg, state=None):
     di = cfg.d_inner or 2 * d
     H, P = cfg.ssm_heads, cfg.ssm_headdim
     G, N = cfg.ssm_groups, cfg.ssm_state
+    xin = whole_seq(xin)
     z = xin @ p["in_z"].to(xin.dtype)
     x = xin @ p["in_x"].to(xin.dtype)
     bc = xin @ p["in_bc"].to(xin.dtype)
     dt = F.softplus((xin @ p["dt_w"].to(xin.dtype)).to(F32) + p["dt_bias"].to(F32))
+    x = shard_act(x, "act_ff")
+    z = shard_act(z, "act_ff")
     cs_x = None if state is None else state["conv_x"]
     cs_bc = None if state is None else state["conv_bc"]
     x, ncs_x = _causal_conv(x, p["conv_x"], cs_x)
@@ -138,11 +192,11 @@ def ssm_forward(p, xin, cfg, state=None):
     xh = x.reshape(B, S, H, P)
     A = -torch.exp(p["ssm_a"].to(F32))
     s0 = None if state is None else state["ssm"]
-    y, s_new = ops.ssd(xh, dt, A, Bv, Cv, cfg.ssm_chunk, s0)
+    y, s_new = _ssd(xh, dt, A, Bv, Cv, cfg.ssm_chunk, s0)
     y = y + xh * p["ssm_d"].to(xin.dtype)[None, None, :, None]
     y = y.reshape(B, S, di)
     y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = y @ p["out_proj"].to(xin.dtype)
+    out = row_out(y @ p["out_proj"].to(xin.dtype))
     return out, {"conv_x": ncs_x, "conv_bc": ncs_bc, "ssm": s_new}
 
 

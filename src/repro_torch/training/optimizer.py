@@ -16,6 +16,8 @@ import math
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor
+
 F32 = torch.float32
 
 
@@ -43,11 +45,12 @@ def schedule(c: AdamWConfig, step) -> torch.Tensor:
 
 
 def adamw_init(params: dict) -> dict:
-    """Zero moments for ``params`` ({name: tensor}) and step 0."""
+    """Zero moments for ``params`` ({name: tensor}) and step 0; a DTensor
+    parameter's moments are DTensors placed as it is."""
     dev = next(iter(params.values())).device
     return {
-        "m": {k: torch.zeros(p.shape, dtype=F32, device=p.device) for k, p in params.items()},
-        "v": {k: torch.zeros(p.shape, dtype=F32, device=p.device) for k, p in params.items()},
+        "m": {k: torch.zeros_like(p, dtype=F32) for k, p in params.items()},
+        "v": {k: torch.zeros_like(p, dtype=F32) for k, p in params.items()},
         "step": torch.zeros((), dtype=torch.int32, device=dev),
     }
 
@@ -58,11 +61,32 @@ def global_norm(tree: dict) -> torch.Tensor:
     leaves); on the CPU each leaf's ``sum(square(g))``, pairwise-summed as
     the reference computes it (the CPU's ``vector_norm`` and
     ``_foreach_norm`` drift by ~1e-3 relative on a leaf of ~1e8 elements,
-    such as qwen2-1.5b's embedding)."""
+    such as qwen2-1.5b's embedding). On DTensor gradients (tensor
+    parallelism) the same sum of squares over each leaf's shards, the local
+    sums of the leaves that are sharded over the same mesh dimensions added
+    first, so one reduction a group gives the global norm: a plain 0-d
+    tensor on every rank."""
     gs = [g.to(F32) for g in tree.values()]
+    if is_dtensor(gs[0]):
+        return torch.sqrt(_sharded_sum_sq(gs))
     if gs[0].is_cuda:
         return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
     return torch.sqrt(sum(torch.sum(torch.square(g)) for g in gs))
+
+
+def _sharded_sum_sq(gs: list) -> torch.Tensor:
+    """Σ sum(g²) over DTensor leaves: each leaf's local sum is ``Partial``
+    over the mesh dimensions the leaf is sharded on; the leaves of one such
+    placement add their local sums, and each group is reduced once."""
+    from torch.distributed.tensor import DTensor
+
+    groups: dict = {}
+    for g in gs:
+        s = torch.sum(torch.square(g))
+        key = (id(s.device_mesh), tuple(s.placements))
+        groups.setdefault(key, (s.device_mesh, s.placements, []))[2].append(s.to_local())
+    return sum(DTensor.from_local(torch.stack(parts).sum(), mesh, pl, run_check=False).full_tensor()
+               for mesh, pl, parts in groups.values())
 
 
 #: parameters' elements a run of ``_foreach`` calls takes at once (1 GiB in

@@ -21,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models import lm
 from repro_torch.models.layers import softmax_xent
 from repro_torch.training.optimizer import AdamWConfig, adamw_init, adamw_update, global_norm, schedule
@@ -52,9 +53,41 @@ def loss_fn(model, cfg, batch: dict, opts: TrainOptions):
 
 def _grad(loss, leaves: list) -> list:
     """d loss / d leaf, zeros for a leaf the loss does not reach (the encdec
-    family's ``norm_f``), as ``jax.grad`` gives them."""
+    family's ``norm_f``), as ``jax.grad`` gives them. A DTensor leaf's
+    gradient (tensor parallelism) is redistributed to the leaf's own
+    placements: one that comes back ``Partial`` over the data axes is
+    summed there."""
     gs = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g for g, p in zip(gs, leaves)]
+    return [torch.zeros_like(p) if g is None else _placed_as(g, p) for g, p in zip(gs, leaves)]
+
+
+def _placed_as(g, p):
+    if not is_dtensor(p) or tuple(g.placements) == tuple(p.placements):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
+
+
+def _value(t):
+    """A detached value; a DTensor's (tensor parallelism: a loss may be a
+    ``Partial`` sum over the ranks' rows) reduced to a plain tensor."""
+    t = t.detach()
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def _microbatch(v, mb: int, i: int):
+    """Microbatch ``i`` of ``mb``: rows i·B/mb to (i+1)·B/mb. A DTensor
+    batch (tensor parallelism) takes them from each rank's own rows, so
+    the rows stay where they are (microbatch i holds other rows than on
+    one device; the mean over all microbatches is the same)."""
+    if not is_dtensor(v):
+        return v.reshape(mb, v.shape[0] // mb, *v.shape[1:])[i]
+    from torch.distributed.tensor import DTensor
+
+    loc = v.to_local()
+    if loc.shape[0] % mb:
+        raise ValueError(f"a rank's {loc.shape[0]} rows do not split into {mb} microbatches")
+    n = loc.shape[0] // mb
+    return DTensor.from_local(loc[i * n:(i + 1) * n], v.device_mesh, v.placements, run_check=False)
 
 
 def _grads(model, cfg, batch: dict, opts: TrainOptions):
@@ -67,20 +100,20 @@ def _grads(model, cfg, batch: dict, opts: TrainOptions):
         B = batch["tokens"].shape[0]
         if B % mb:
             raise ValueError(f"batch {B} does not split into {mb} microbatches")
-        g_acc = [torch.zeros(p.shape, dtype=F32, device=p.device) for p in leaves]
+        g_acc = [torch.zeros_like(p, dtype=F32) for p in leaves]
         l_acc = torch.zeros((), dtype=F32, device=leaves[0].device)
         for i in range(mb):
-            part = {k: v.reshape(mb, B // mb, *v.shape[1:])[i] for k, v in batch.items()}
+            part = {k: _microbatch(v, mb, i) for k, v in batch.items()}
             loss, _m = loss_fn(model, cfg, part, opts)
             grads = _grad(loss, leaves)
             torch._foreach_add_(g_acc, [g.to(F32) for g in grads])
-            l_acc = l_acc + loss.detach()
+            l_acc = l_acc + _value(loss)
         g = dict(zip(params, torch._foreach_div(g_acc, mb)))
         return l_acc / mb, {"loss": l_acc / mb}, g
     loss, metrics = loss_fn(model, cfg, batch, opts)
     grads = _grad(loss, leaves)
-    metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in metrics.items()}
-    return loss.detach(), metrics, {k: g.to(F32) for k, g in zip(params, grads)}
+    metrics = {k: _value(v) if isinstance(v, torch.Tensor) else v for k, v in metrics.items()}
+    return _value(loss), metrics, {k: g.to(F32) for k, g in zip(params, grads)}
 
 
 def _stacked(name: str) -> str:
@@ -144,5 +177,5 @@ def init_train_state(gen: torch.Generator, cfg, opts: TrainOptions = TrainOption
     params = dict(model.named_parameters())
     opt = adamw_init(params)
     if opts.grad_compress == "int16_ef":
-        opt["ef"] = {k: torch.zeros(p.shape, dtype=F32, device=p.device) for k, p in params.items()}
+        opt["ef"] = {k: torch.zeros_like(p, dtype=F32) for k, p in params.items()}
     return model, opt

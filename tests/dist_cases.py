@@ -12,6 +12,7 @@ on a ``FileStore`` in WORKDIR.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -33,6 +34,11 @@ RULE_CASES = [  # (data_axes, seq_shard, pure_dp) of Rules on a (data 2, model 2
 ]
 RULE_NAMES = ("act_btd", "act_heads", "act_ff", "act_btv", "tokens", "kv_cache", "kv_cache_seq",
               "ssm_state", "sage_blocks")
+TP_CASES = (("qwen2-1.5b", True), ("qwen2-1.5b", False), ("mamba2-370m", True), ("deepseek-moe-16b", True))  # (arch, seq_shard)
+TP_STEPS = 2
+TP_BATCH = (4, 64)
+TP_PREFILL_LEN = 80  # the prefill's cache slots (64 tokens, zeros after)
+ZERO_ARCHS = ("qwen2-1.5b", "mamba2-370m")  # full size, shapes only (fake tensors)
 
 
 def nest(flat: dict, prefix: str) -> dict:
@@ -100,6 +106,102 @@ def dp_run(arch: str, compress: str, mesh, inputs: dict) -> dict:
     out["wire_bytes"] = np.asarray(step.wire["bytes"])
     out["wire_elements"] = np.asarray(step.wire["elements"])
     return out
+
+
+def tp_run(arch: str, seq_shard: bool, mesh, inputs: dict, start=None, first: int = 0, steps: int = TP_STEPS) -> dict:
+    """``steps`` of ``make_train_step`` (f32 forward) of reduced ``arch`` on
+    the TP batches from ``first`` on, from the port's seed-0 weights and
+    zero AdamW state: with ``mesh`` (data 2, model 2), its parameters as
+    DTensors (``distribute_model``) under ``Rules(mesh, seq_shard=)`` and
+    the batch entering as "tokens"; with ``mesh`` None, the one-rank step,
+    from ``start`` (a state as this returns it, flat in the JAX package's
+    layout) where given. Returns the metrics and, after each step, the
+    state gathered whole ("state/<i>/<key>")."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import train_state_from_reference
+    from repro_torch.distributed.sharding import Rules, distribute_model, use_rules
+    from repro_torch.models import lm
+    from repro_torch.training import steps as TS
+    from repro_torch.training.optimizer import adamw_init
+    from train_cases import whole_state
+
+    cfg = get_arch(arch).reduced()
+    model = lm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    rules = None if mesh is None else Rules(mesh, seq_shard=seq_shard)
+    if rules is not None:
+        distribute_model(model, rules)
+    opt = adamw_init(dict(model.named_parameters()))
+    if start is not None:
+        sd, opt = train_state_from_reference(cfg, nest(start, "params/"), nest(start, "opt/"))
+        model.load_state_dict(sd)
+    step = TS.make_train_step(cfg, dp_options(None))
+    out = {}
+    orig = lm.forward
+    lm.forward = functools.partial(orig, dtype=torch.float32)
+    try:
+        with use_rules(rules):
+            for i in range(first, first + steps):
+                batch = {k: torch.from_numpy(inputs[f"tp_batch/{i}/{k}"]) for k in ("tokens", "labels")}
+                if rules is not None:
+                    batch = {k: distribute_tensor(v, mesh, rules.spec("tokens"), src_data_rank=None)
+                             for k, v in batch.items()}
+                model, opt, m = step(model, opt, batch)
+                for k, v in m.items():
+                    out[f"metric/{i}/{k}"] = np.asarray(float(v))
+                out.update({f"state/{i}/{k}": v for k, v in whole_state(cfg, model, opt).items()})
+    finally:
+        lm.forward = orig
+    return out
+
+
+def tp_prefill(mesh, inputs: dict) -> dict:
+    """Reduced qwen2-1.5b's f32 prefill of the first TP batch into
+    TP_PREFILL_LEN slots, under ``Rules(mesh, seq_shard=True)`` with DTensor
+    parameters (``mesh`` None: one rank): the last position's logits and
+    the cache's k and v, gathered whole."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import Rules, distribute_model, is_dtensor, use_rules
+    from repro_torch.models import lm
+
+    cfg = get_arch("qwen2-1.5b").reduced()
+    model = lm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    tokens = torch.from_numpy(inputs["tp_batch/0/tokens"])
+    rules = None if mesh is None else Rules(mesh, seq_shard=True)
+    if rules is not None:
+        distribute_model(model, rules)
+        tokens = distribute_tensor(tokens, mesh, rules.spec("tokens"), src_data_rank=None)
+    with use_rules(rules):
+        logits, cache = lm.prefill(model, cfg, tokens, TP_PREFILL_LEN, chunk=32, dtype=torch.float32)
+    whole = {"logits": logits, "k": cache["k"], "v": cache["v"]}
+    return {k: np.asarray(v.full_tensor() if is_dtensor(v) else v) for k, v in whole.items()}
+
+
+@contextlib.contextmanager
+def recorded_acts(log: list):
+    """Every ``shard_act`` call of the models appends (name, placements of
+    its result) to ``log`` (the models' modules' own ``shard_act`` names
+    are patched, so nothing else changes)."""
+    from repro_torch.distributed.sharding import is_dtensor, shard_act
+    from repro_torch.models import layers, lm, ssm
+
+    def rec(x, name):
+        y = shard_act(x, name)
+        if is_dtensor(y):
+            log.append((name, repr(tuple(y.placements))))
+        return y
+
+    mods = (layers, lm, ssm)
+    for m in mods:
+        m.shard_act = rec
+    try:
+        yield log
+    finally:
+        for m in mods:
+            m.shard_act = shard_act
 
 
 def main(workdir: Path, rank: int, world: int) -> None:
@@ -203,6 +305,30 @@ def main(workdir: Path, rank: int, world: int) -> None:
                 params[arch] = {k: [part_json(param_spec(k, v.ndim, r)), repr(places[k]), list(v.shape)]
                                 for k, v in named.items()}
             res["rules"] = np.asarray(json.dumps({"rules": rules, "params": params}))
+
+            # ZeRO-1 moment placements of full-size parameters (no allocation)
+            from torch._subclasses.fake_tensor import FakeTensorMode
+
+            from repro_torch.launch.specs import _zero1_sharding
+
+            zero = {}
+            with FakeTensorMode():
+                for arch in ZERO_ARCHS:
+                    named = dict(lm.init_params(torch.Generator(), get_arch(arch), device="cpu").named_parameters())
+                    places = param_shardings(named, r)
+                    zero[arch] = {k: [list(v.shape), repr(_zero1_sharding(tuple(v.shape), places[k], r))]
+                                  for k, v in named.items()}
+            res["zero1"] = np.asarray(json.dumps(zero))
+
+        # ---- TP / SP through the LM on (data 2, model 2): train steps, a prefill, the named points
+        acts: dict = {}
+        for arch, seq in TP_CASES:
+            with recorded_acts(acts.setdefault(f"{arch}/{seq}", [])):
+                for k, v in tp_run(arch, seq, dm, inputs).items():
+                    res[f"tp/{arch}/{seq}/{k}"] = v
+        res["tp/acts"] = np.asarray(json.dumps(acts))
+        for k, v in tp_prefill(dm, inputs).items():
+            res[f"tp_prefill/{k}"] = v
     finally:
         dist.destroy_process_group()
     np.savez(workdir / f"rank{rank}.npz", **res)

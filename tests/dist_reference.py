@@ -34,7 +34,7 @@ from repro.models import lm as JLM
 from repro.training import optimizer as JO
 from repro.training import steps as JS
 
-from dist_cases import ADAMW, DP_ARCHS, DP_COMPRESS, DP_LAYERS, DP_STEPS, nest
+from dist_cases import ADAMW, DP_ARCHS, DP_COMPRESS, DP_LAYERS, DP_STEPS, ZERO_ARCHS, nest
 
 
 def flat(tree, prefix: str = "") -> dict:
@@ -78,12 +78,35 @@ def shardings() -> dict:
     return out
 
 
+def zero1() -> dict:
+    """``repro``'s ZeRO-1 moment specs (``launch/specs._zero1_sharding``) on
+    a (data 2, model 2) mesh for full-size ZERO_ARCHS: for each leaf its
+    shape, and the spec of one layer's slice of it (the stacked leaf's
+    leading layer axis cut off, as the port's parameters are), from the
+    slice of the leaf's parameter spec."""
+    from repro.launch.specs import _zero1_sharding
+
+    rules = Rules(make_mesh((2, 2), ("data", "model")), data_axes=("data",))
+    out = {}
+    for arch in ZERO_ARCHS:
+        shapes = jax.eval_shape(lambda k, cfg=ARCHS[arch]: JLM.init_params(k, cfg), jax.random.PRNGKey(0))
+        sh = param_shardings(shapes, rules)
+        out[arch] = {}
+        for (path, leaf), s in zip(jax.tree_util.tree_flatten_with_path(shapes)[0], jax.tree.leaves(sh)):
+            name = _path_str(path)
+            lead = 1 if name.split("/")[0] in ("layers", "enc_layers", "dec_layers") else 0
+            one = jax.ShapeDtypeStruct(leaf.shape[lead:], leaf.dtype)
+            z = _zero1_sharding(one, NamedSharding(rules.mesh, P(*list(s.spec)[lead:])), rules)
+            out[arch][name] = [list(leaf.shape), [list(a) if isinstance(a, tuple) else a for a in z.spec]]
+    return out
+
+
 def main(workdir: Path) -> None:
     assert len(jax.devices()) >= 4, jax.devices()
     inputs = dict(np.load(workdir / "inputs.npz"))
     # both packages' forwards in f32 (the train step's default is bf16)
     JLM.forward = functools.partial(JLM.forward, dtype=jnp.float32)
-    res = {"shardings": np.asarray(json.dumps(shardings()))}
+    res = {"shardings": np.asarray(json.dumps(shardings())), "zero1": np.asarray(json.dumps(zero1()))}
     with ThreadPoolExecutor(4) as ex:
         futs = [ex.submit(dp_case, a, c, n, inputs) for a in DP_ARCHS for c in DP_COMPRESS for n in (2, 4)]
         for f in futs:

@@ -44,6 +44,7 @@ from repro_torch.training.steps import _stacked
 
 import dist_cases as DC
 import dist_reference as DR
+from train_cases import compare_step
 
 ROOT = Path(__file__).resolve().parent.parent
 TESTS = ROOT / "tests"
@@ -73,6 +74,11 @@ def make_inputs() -> dict:
     for i in range(DC.DP_STEPS):
         t = rb.integers(0, vocab, (4, 33)).astype(np.int32)
         out[f"dp_batch/{i}/tokens"], out[f"dp_batch/{i}/labels"] = t[:, :-1], t[:, 1:]
+    rt = np.random.default_rng(11)
+    vocab = min(JARCHS[a].reduced().vocab for a, _ in DC.TP_CASES)
+    for i in range(DC.TP_STEPS):
+        t = rt.integers(0, vocab, (DC.TP_BATCH[0], DC.TP_BATCH[1] + 1)).astype(np.int32)
+        out[f"tp_batch/{i}/tokens"], out[f"tp_batch/{i}/labels"] = t[:, :-1], t[:, 1:]
     return out
 
 
@@ -384,3 +390,97 @@ def test_production_mesh_names_the_world_it_needs(dist_run):
     assert "256 ranks" in str(dist_run[1][0]["production_mesh_error"])
     with pytest.raises(ValueError, match="512 ranks"):
         make_production_mesh(multi_pod=True)
+
+
+# ------------------------------------------------------------- TP / SP
+def tp_leaves(res: dict, prefix: str, i: int) -> tuple[dict, dict]:
+    """(metrics, state) of step ``i`` under ``prefix``, as compare_step takes them."""
+    m = {k: float(res[f"{prefix}metric/{i}/{k}"]) for k in ("loss", "grad_norm", "lr")}
+    pre = f"{prefix}state/{i}/"
+    return m, {k[len(pre):]: v for k, v in res.items() if k.startswith(pre)}
+
+
+@pytest.mark.parametrize("arch,seq_shard", DC.TP_CASES, ids=[f"{a}-sp{int(s)}" for a, s in DC.TP_CASES])
+def test_tp_train_step_matches_one_rank_step(dist_run, arch, seq_shard):
+    """Tensor (and with seq_shard, sequence) parallelism through the LM:
+    reduced ``arch`` on a (data 2, model 2) gloo mesh, its parameters
+    DTensors placed by param_shardings, chunk 32, a (4, 64) batch a step,
+    f32 forwards. qwen2-1.5b's 4 query heads split over the model axis
+    while its one KV head stays whole; mamba2-370m's 8 heads and B6 split;
+    deepseek-moe-16b's 8 experts split 4 a rank (EP) and its shared
+    experts by columns. repro's check (tests/test_distributed.py
+    test_train_step_runs_sharded_with_sp): the losses finite and not rising
+    by 1.0. Then each step, gathered whole, is held against the one-rank
+    port step from the same state (the seed-0 weights, then the TP state
+    after the step before) within tests/train_cases.py's bounds
+    (compare_step)."""
+    _inputs, ranks, _ref, _o = dist_run
+    inputs = dist_run[0]
+    prefix = f"tp/{arch}/{seq_shard}/"
+    losses = [float(ranks[0][f"{prefix}metric/{i}/loss"]) for i in range(DC.TP_STEPS)]
+    assert all(np.isfinite(losses)) and losses[1] < losses[0] + 1.0, losses
+    for i in range(DC.TP_STEPS):
+        start = None if i == 0 else tp_leaves(ranks[0], prefix, i - 1)[1]
+        one = DC.tp_run(arch, seq_shard, None, inputs, start=start, first=i, steps=1)
+        compare_step(tp_leaves(ranks[0], prefix, i), tp_leaves(one, "", i), step=i + 1)
+    for r in range(1, WORLD):  # the gathered states of all ranks agree
+        for k in (k for k in ranks[0] if k.startswith(prefix)):
+            np.testing.assert_array_equal(ranks[r][k], ranks[0][k], err_msg=f"rank {r} {k}")
+
+
+def test_tp_prefill_matches_one_rank(dist_run):
+    """Reduced qwen2-1.5b's f32 prefill of a (4, 64) batch into 80 slots
+    under Rules(seq_shard=True) on (data 2, model 2): the last position's
+    logits and the KV cache (zeros after position 64), gathered whole,
+    within 1e-5·max|leaf| of the one-rank prefill (the row-parallel
+    products sum in another order)."""
+    inputs, ranks, _ref, _o = dist_run
+    one = DC.tp_prefill(None, inputs)
+    for k, want in one.items():
+        got = ranks[0][f"tp_prefill/{k}"]
+        assert got.shape == want.shape, (k, got.shape, want.shape)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * float(np.abs(want).max()), err_msg=k)
+    assert not np.any(ranks[0]["tp_prefill/k"][:, :, DC.TP_BATCH[1]:])
+
+
+def test_tp_named_points_take_the_reference_placements(dist_run):
+    """Every shard_act point the TP steps pass (recorded on each rank) gives
+    its activation the placements of repro's PartitionSpec for its name
+    (Rules.spec on the same rules); qwen2 passes act_btd, act_heads, act_ff
+    and act_btv, mamba2 act_btd, act_ff and act_btv, deepseek-moe-16b
+    act_btd, act_heads and act_btv (its shared experts' act_ff lies inside
+    the MoE's kernel boundary, on each rank's plain shard)."""
+    mesh = ref_make_mesh((1, 1), ("data", "model"))
+    want_names = {"qwen2-1.5b": {"act_btd", "act_heads", "act_ff", "act_btv"},
+                  "mamba2-370m": {"act_btd", "act_ff", "act_btv"},
+                  "deepseek-moe-16b": {"act_btd", "act_heads", "act_btv"}}
+    for r, res in enumerate(dist_run[1]):
+        acts = json.loads(str(res["tp/acts"]))
+        assert sorted(acts) == sorted(f"{a}/{s}" for a, s in DC.TP_CASES)
+        for case, log in acts.items():
+            arch, seq = case.split("/")
+            ref = RefRules(mesh, data_axes=("data",), seq_shard=seq == "True")
+            seen = {name for name, _ in log}
+            assert seen == want_names[arch], (r, case, seen)
+            for name, places in log:
+                assert places == expected_placements(ref.spec(name)), (r, case, name, places)
+
+
+def test_zero1_moments_take_the_reference_placements(dist_run):
+    """Each AdamW moment's ZeRO-1 placements from the port's
+    launch.specs._zero1_sharding, for full-size qwen2-1.5b and mamba2-370m
+    (fake tensors: shapes only) on the (data 2, model 2) mesh, equal
+    repro's _zero1_sharding of the same parameter on the same mesh. The
+    port's parameters are repro's stacked leaves cut to one layer, so
+    repro's is taken on that cut (its stacked leaf would put the data
+    shard on the layer axis where the data size divides the depth)."""
+    _inputs, ranks, ref, _o = dist_run
+    ours = json.loads(str(ranks[0]["zero1"]))
+    theirs = json.loads(str(ref["zero1"]))
+    assert sorted(ours) == sorted(theirs) == sorted(DC.ZERO_ARCHS)
+    for arch, params in ours.items():
+        assert len(params) >= len(theirs[arch])
+        for name, (shape, places) in params.items():
+            ref_shape, ref_spec = theirs[arch][_stacked(name).replace(".", "/")]
+            assert ref_shape[len(ref_shape) - len(shape):] == shape, (arch, name)
+            assert places == expected_placements(ref_spec), (arch, name, places, ref_spec)

@@ -27,6 +27,7 @@ import contextlib
 import copy
 import dataclasses
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -81,9 +82,31 @@ def one_step(cfg, model, batch: dict, dev) -> tuple[dict, dict]:
     return {k: float(v) for k, v in m.items()}, dict(_flatten(train_state_to_reference(cfg, model, opt)))
 
 
-def compare_step(card: tuple[dict, dict], cpu: tuple[dict, dict], dev="cpu") -> dict:
+def whole_state(cfg, model, opt) -> dict:
+    """The train state as ``one_step`` gives it (flat {name: host array} in
+    the JAX package's layout), DTensor parameters and moments (tensor
+    parallelism) gathered whole: every rank calls it."""
+    import types
+
+    from repro_torch.distributed.sharding import full_params, is_dtensor
+
+    def whole(t):
+        return (t.full_tensor() if is_dtensor(t) else t).detach()
+
+    plain = types.SimpleNamespace(named_parameters=lambda: full_params(model).items())
+    o = {k: {n: whole(t) for n, t in opt[k].items()} for k in ("m", "v")}
+    o["step"] = opt["step"]
+    return {k: np.array(v) for k, v in _flatten(train_state_to_reference(cfg, plain, o))}  # copies: opt moves in place
+
+
+def compare_step(card: tuple[dict, dict], cpu: tuple[dict, dict], dev="cpu", step: int = 1,
+                 lr_sum: Optional[float] = None) -> dict:
     """Hold the card's step against the CPU's (bounds in the module
     docstring); returns the errors, raises AssertionError past a bound.
+    After ``step`` steps from the same state (the metrics those of the last
+    step), AdamW's term takes ``lr_sum``, the sum of the steps' learning
+    rates (default: the last step's), as
+    tests/test_torch_distributed.py's ``dp_close`` does.
     The leaves are compared as f32 tensors (their own dtype; a difference
     of two f32 values and the bounds lose nothing that matters at 1e-4)
     on ``dev``: a full-width cut holds ~1.5e9 values, which the card
@@ -94,11 +117,11 @@ def compare_step(card: tuple[dict, dict], cpu: tuple[dict, dict], dev="cpu") -> 
     for k in ("loss", "grad_norm"):
         assert abs(mc[k] - mp[k]) <= TOL * abs(mp[k]), (k, mc[k], mp[k])
     assert sorted(sc) == sorted(sp)
-    lr, eps, b1 = mp["lr"], ADAMW.eps, ADAMW.b1
+    lr, eps, b1 = mp["lr"] if lr_sum is None else lr_sum, ADAMW.eps, ADAMW.b1
     worst = {}
     for k in sp:
         if k == "opt/step":
-            assert int(sc[k]) == int(sp[k]) == 1
+            assert int(sc[k]) == int(sp[k]) == step
             continue
         a, b = (torch.from_numpy(np.require(x, np.float32, ["W"])).to(dev) for x in (sc[k], sp[k]))
         top = float(b.abs().max())
