@@ -8,10 +8,11 @@ happen at first use, all sources in parallel (one ``nvcc`` each), into the
 its sources and flags, so an edited kernel rebuilds and an unchanged one is
 only loaded. Nothing here runs when the module is imported.
 
-``COUNTS`` is the observability contract of the port's hot path:
-``launch:<kernel>`` is bumped by a wrapper exactly where it launches its
-CUDA kernel, ``plain:<kernel>`` where a CPU tensor takes the plain torch
-version, and ``build`` once per library compiled by this process.
+``COUNTS`` is ``repro_torch.obs.COUNTS``, the port's one registry of
+counters: ``launch:<kernel>`` is bumped by a wrapper exactly where it
+launches its CUDA kernel, ``plain:<kernel>`` where a CPU tensor takes the
+plain torch version, and ``build`` once per library compiled by this
+process; ``counts()`` and ``reset_counts()`` are its views.
 """
 
 from __future__ import annotations
@@ -23,8 +24,9 @@ import shutil
 import subprocess
 import threading
 import time
-from collections import Counter
 from pathlib import Path
+
+from repro_torch.obs import COUNTS, counts, reset_counts  # noqa: F401  (the registry and its views)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: the checkout's root when this package sits at ``<root>/src/repro_torch``
@@ -43,21 +45,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 )
 
-COUNTS: Counter = Counter()
 #: per library: {"seconds", "built", "log"} of this process's build/load
 BUILD_INFO: dict[str, dict] = {}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
-
-
-def counts() -> dict[str, int]:
-    """Snapshot of launch / plain / build counters."""
-    return dict(COUNTS)
-
-
-def reset_counts() -> None:
-    COUNTS.clear()
 
 
 def _nvcc() -> str:

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.core.decode_torch import DeviceBlocks
 from repro_torch.kernels import reformat
 from repro_torch.kernels.banded_align import align_scan
@@ -67,27 +68,30 @@ def ssd(x, dt, A, B_, C_, chunk: int, state0=None):
     N = B_.shape[-1]
     Q = min(chunk, S0)
     pad = (-S0) % Q
-    if pad:
-        x, dt, B_, C_ = (F.pad(t, [0, 0] * (t.dim() - 2) + [0, pad]) for t in (x, dt, B_, C_))
     S = S0 + pad
     nc = S // Q
-    a = dt.to(F32) * A.to(F32)[None, None, :]
-    xc = x.reshape(Bb, nc, Q, H, P).contiguous()
-    dtc = dt.reshape(Bb, nc, Q, H).to(F32).contiguous()
-    ac = a.reshape(Bb, nc, Q, H).contiguous()
-    Bc = B_.reshape(Bb, nc, Q, H, N).to(F32).contiguous()
-    Cc = C_.reshape(Bb, nc, Q, H, N).to(F32).contiguous()
+    with obs.span("rt.ssm.ssd_prep"):
+        if pad:
+            x, dt, B_, C_ = (F.pad(t, [0, 0] * (t.dim() - 2) + [0, pad]) for t in (x, dt, B_, C_))
+        a = dt.to(F32) * A.to(F32)[None, None, :]
+        xc = x.reshape(Bb, nc, Q, H, P).contiguous()
+        dtc = dt.reshape(Bb, nc, Q, H).to(F32).contiguous()
+        ac = a.reshape(Bb, nc, Q, H).contiguous()
+        Bc = B_.reshape(Bb, nc, Q, H, N).to(F32).contiguous()
+        Cc = C_.reshape(Bb, nc, Q, H, N).to(F32).contiguous()
 
-    y_intra, st_c, total = ssd_intra(xc, dtc, ac, Bc, Cc)
+    with obs.span("rt.ssm.b6"):
+        y_intra, st_c, total = ssd_intra(xc, dtc, ac, Bc, Cc)
 
-    state = torch.zeros((Bb, H, P, N), dtype=F32, device=x.device) if state0 is None else state0.to(F32)
-    decay = torch.exp(total)  # (B,nc,H)
-    states_in = []  # the INCOMING state of each chunk
-    for c in range(nc):
-        states_in.append(state)
-        state = state * decay[:, c, :, None, None] + st_c[:, c]
-    states_in = torch.stack(states_in, dim=1)  # (B,nc,H,P,N)
-    cum = torch.cumsum(ac, dim=2)  # (B,nc,Q,H)
-    y_state = torch.einsum("bcqhn,bchdn->bcqhd", Cc, states_in) * torch.exp(cum)[..., None]
-    y = (y_intra.to(F32) + y_state).reshape(Bb, S, H, P)[:, :S0]
-    return y.to(x.dtype), state
+    with obs.span("rt.ssm.ssd_state"):
+        state = torch.zeros((Bb, H, P, N), dtype=F32, device=x.device) if state0 is None else state0.to(F32)
+        decay = torch.exp(total)  # (B,nc,H)
+        states_in = []  # the INCOMING state of each chunk
+        for c in range(nc):
+            states_in.append(state)
+            state = state * decay[:, c, :, None, None] + st_c[:, c]
+        states_in = torch.stack(states_in, dim=1)  # (B,nc,H,P,N)
+        cum = torch.cumsum(ac, dim=2)  # (B,nc,Q,H)
+        y_state = torch.einsum("bcqhn,bchdn->bcqhd", Cc, states_in) * torch.exp(cum)[..., None]
+        y = (y_intra.to(F32) + y_state).reshape(Bb, S, H, P)[:, :S0]
+        return y.to(x.dtype), state

@@ -56,6 +56,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
+from repro_torch import obs
 from repro_torch.core.decode_torch import resolve_device
 from repro_torch.distributed.sharding import current_rules, is_dtensor, shard_act, use_rules, whole_seq
 from repro_torch.models import layers as L
@@ -382,14 +383,16 @@ def _under(rules, ctx):
 def _block(layer, x, cfg, chunk, extra=None):
     """A layer's training forward: x, or the moe block's (x, aux).
     ``extra`` is the vlm family's M-RoPE positions, or a decoder layer's
-    encoder output."""
-    if isinstance(layer, Mamba2Block):
-        return layer(x, cfg)[0]
-    if isinstance(layer, DecLayer):
-        return layer(x, cfg, chunk, extra)
-    if isinstance(layer, EncLayer):
-        return layer(x, cfg, chunk)
-    return layer(x, cfg, chunk, positions3=extra)
+    encoder output. Its ``rt.lm.block`` span is inside the checkpoint, so a
+    remat's recompute opens it again."""
+    with obs.span("rt.lm.block"):
+        if isinstance(layer, Mamba2Block):
+            return layer(x, cfg)[0]
+        if isinstance(layer, DecLayer):
+            return layer(x, cfg, chunk, extra)
+        if isinstance(layer, EncLayer):
+            return layer(x, cfg, chunk)
+        return layer(x, cfg, chunk, positions3=extra)
 
 
 def forward(model: _LM, cfg, tokens, *, patch_embeds=None, frames=None, remat: bool = True,
@@ -442,7 +445,8 @@ def forward(model: _LM, cfg, tokens, *, patch_embeds=None, frames=None, remat: b
         for layer in model.dec_layers:
             x = shard_act(run(layer, x, enc_out), "act_btd")
         return _head(model, _norm(model.enc_norm_f, x, cfg)), 0.0
-    x = _embed(model, tokens, dtype)
+    with obs.span("rt.lm.embed"):
+        x = _embed(model, tokens, dtype)
     pos3 = None
     if cfg.family == "vlm":
         x, pos3 = _vlm_inputs(cfg, x, patch_embeds, dtype)
@@ -462,10 +466,11 @@ def forward(model: _LM, cfg, tokens, *, patch_embeds=None, frames=None, remat: b
     else:
         for layer in model.layers:
             x = shard_act(run(layer, x, pos3), "act_btd")
-    x = rmsnorm(x, model.norm_f, cfg.norm_eps)
-    if cfg.family == "vlm":
-        x = x[:, -tokens.shape[1]:]
-    return _head(model, x), aux_total
+    with obs.span("rt.lm.head"):
+        x = rmsnorm(x, model.norm_f, cfg.norm_eps)
+        if cfg.family == "vlm":
+            x = x[:, -tokens.shape[1]:]
+        return _head(model, x), aux_total
 
 
 def _stacked_state(cfg, lead: tuple, batch: int, device) -> dict:

@@ -22,6 +22,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.core.decode_torch import resolve_device
 from repro_torch.distributed.sharding import batch_partial, heads_layout, row_out, shard_act, tp_rules, whole_seq
 from repro_torch.kernels import ops
@@ -169,34 +170,42 @@ def ssm_forward(p, xin, cfg, state=None):
     """Full Mamba2 block. xin: (B, S, d); ``p`` as :meth:`Mamba2Mixer.params`
     (or a dict of tensors under the same names). ``state`` (decode
     continuation) is a dict {"conv_x", "conv_bc", "ssm"}; returns
-    (out, new_state)."""
+    (out, new_state). Spans: ``rt.ssm.in_proj``, ``rt.ssm.conv``,
+    ``rt.ssm.ssd_prep`` / ``rt.ssm.b6`` / ``rt.ssm.ssd_state`` (here and in
+    ``ops.ssd``), ``rt.ssm.gate_norm``, ``rt.ssm.out_proj``."""
     B, S, d = xin.shape
     di = cfg.d_inner or 2 * d
     H, P = cfg.ssm_heads, cfg.ssm_headdim
     G, N = cfg.ssm_groups, cfg.ssm_state
     xin = whole_seq(xin)
-    z = xin @ p["in_z"].to(xin.dtype)
-    x = xin @ p["in_x"].to(xin.dtype)
-    bc = xin @ p["in_bc"].to(xin.dtype)
-    dt = F.softplus((xin @ p["dt_w"].to(xin.dtype)).to(F32) + p["dt_bias"].to(F32))
-    x = shard_act(x, "act_ff")
-    z = shard_act(z, "act_ff")
+    with obs.span("rt.ssm.in_proj"):
+        z = xin @ p["in_z"].to(xin.dtype)
+        x = xin @ p["in_x"].to(xin.dtype)
+        bc = xin @ p["in_bc"].to(xin.dtype)
+        dt = F.softplus((xin @ p["dt_w"].to(xin.dtype)).to(F32) + p["dt_bias"].to(F32))
+        x = shard_act(x, "act_ff")
+        z = shard_act(z, "act_ff")
     cs_x = None if state is None else state["conv_x"]
     cs_bc = None if state is None else state["conv_bc"]
-    x, ncs_x = _causal_conv(x, p["conv_x"], cs_x)
-    bc, ncs_bc = _causal_conv(bc, p["conv_bc"], cs_bc)
-    Bv, Cv = torch.chunk(bc, 2, dim=-1)
-    rep = H // G
-    Bv = Bv.reshape(B, S, G, N).repeat_interleave(rep, dim=2)
-    Cv = Cv.reshape(B, S, G, N).repeat_interleave(rep, dim=2)
-    xh = x.reshape(B, S, H, P)
-    A = -torch.exp(p["ssm_a"].to(F32))
+    with obs.span("rt.ssm.conv"):
+        x, ncs_x = _causal_conv(x, p["conv_x"], cs_x)
+        bc, ncs_bc = _causal_conv(bc, p["conv_bc"], cs_bc)
+    with obs.span("rt.ssm.ssd_prep"):
+        Bv, Cv = torch.chunk(bc, 2, dim=-1)
+        rep = H // G
+        Bv = Bv.reshape(B, S, G, N).repeat_interleave(rep, dim=2)
+        Cv = Cv.reshape(B, S, G, N).repeat_interleave(rep, dim=2)
+        xh = x.reshape(B, S, H, P)
+        A = -torch.exp(p["ssm_a"].to(F32))
     s0 = None if state is None else state["ssm"]
     y, s_new = _ssd(xh, dt, A, Bv, Cv, cfg.ssm_chunk, s0)
-    y = y + xh * p["ssm_d"].to(xin.dtype)[None, None, :, None]
-    y = y.reshape(B, S, di)
-    y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = row_out(y @ p["out_proj"].to(xin.dtype))
+    with obs.span("rt.ssm.ssd_state"):  # the D skip
+        y = y + xh * p["ssm_d"].to(xin.dtype)[None, None, :, None]
+    with obs.span("rt.ssm.gate_norm"):
+        y = y.reshape(B, S, di)
+        y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    with obs.span("rt.ssm.out_proj"):
+        out = row_out(y @ p["out_proj"].to(xin.dtype))
     return out, {"conv_x": ncs_x, "conv_bc": ncs_bc, "ssm": s_new}
 
 

@@ -16,6 +16,7 @@ import math
 
 import torch
 
+from repro_torch import obs
 from repro_torch.distributed.sharding import is_dtensor
 
 F32 = torch.float32
@@ -118,31 +119,33 @@ def adamw_update(c: AdamWConfig, grads: dict, opt: dict, params: dict):
     element ops run over runs of parameters (``CHUNK_ELEMS``): the same
     arithmetic on every element, with temporaries the size of a run."""
     step = opt["step"] + 1
-    gn = global_norm(grads)
+    with obs.span("rt.adamw.norm"):
+        gn = global_norm(grads)
     lr = schedule(c, step)
     stepf = step.to(F32)
     b1c = 1 - c.b1**stepf
     b2c = 1 - c.b2**stepf
     clip = torch.clamp(c.grad_clip / torch.clamp(gn, min=1e-9), max=1.0) if c.grad_clip else None
     for names in _chunks(list(params), params):
-        ps = [params[k] for k in names]
-        gs = [grads[k].to(F32) for k in names]
-        ms = [opt["m"][k] for k in names]
-        vs = [opt["v"][k] for k in names]
-        if clip is not None:
-            gs = torch._foreach_mul(gs, clip)
-        torch._foreach_mul_(ms, c.b1)
-        torch._foreach_add_(ms, torch._foreach_mul(gs, 1 - c.b1))
-        torch._foreach_mul_(vs, c.b2)
-        torch._foreach_add_(vs, torch._foreach_mul(torch._foreach_mul(gs, 1 - c.b2), gs))
-        del gs
-        den = torch._foreach_div(vs, b2c)
-        torch._foreach_sqrt_(den)
-        torch._foreach_add_(den, c.eps)
-        upd = torch._foreach_div(ms, b1c)
-        torch._foreach_div_(upd, den)
-        del den
-        torch._foreach_add_(upd, torch._foreach_mul(ps, c.weight_decay))
-        torch._foreach_mul_(upd, lr)
-        torch._foreach_sub_(ps, upd)
+        with obs.span("rt.adamw.chunk"):
+            ps = [params[k] for k in names]
+            gs = [grads[k].to(F32) for k in names]
+            ms = [opt["m"][k] for k in names]
+            vs = [opt["v"][k] for k in names]
+            if clip is not None:
+                gs = torch._foreach_mul(gs, clip)
+            torch._foreach_mul_(ms, c.b1)
+            torch._foreach_add_(ms, torch._foreach_mul(gs, 1 - c.b1))
+            torch._foreach_mul_(vs, c.b2)
+            torch._foreach_add_(vs, torch._foreach_mul(torch._foreach_mul(gs, 1 - c.b2), gs))
+            del gs
+            den = torch._foreach_div(vs, b2c)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, c.eps)
+            upd = torch._foreach_div(ms, b1c)
+            torch._foreach_div_(upd, den)
+            del den
+            torch._foreach_add_(upd, torch._foreach_mul(ps, c.weight_decay))
+            torch._foreach_mul_(upd, lr)
+            torch._foreach_sub_(ps, upd)
     return params, {"m": opt["m"], "v": opt["v"], "step": step}, {"grad_norm": gn, "lr": lr}

@@ -11,6 +11,11 @@ step's metrics. Options, as in the reference:
 The reference's NaN circuit breaker is in-graph; eager torch checks
 ``isfinite(loss)`` before it applies anything, so a non-finite loss leaves
 the parameters, ``m``, ``v``, ``step`` and ``ef`` untouched.
+
+Spans (``repro_torch.obs``): ``rt.train.step`` around a step, inside it
+``rt.train.grads`` (forward and backward), ``rt.train.nan_gate`` (the
+host's one blocking sync of a step) and ``rt.train.adamw``;
+``rt.train.xent`` around the loss.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models import lm
 from repro_torch.models.layers import softmax_xent
@@ -47,7 +53,8 @@ def loss_fn(model, cfg, batch: dict, opts: TrainOptions):
     extra = {k: batch[k] for k in ("patch_embeds", "frames") if k in batch}
     logits, aux = lm.forward(model, cfg, batch["tokens"], remat=opts.remat,
                              remat_policy=opts.remat_policy, chunk=opts.chunk, **extra)
-    loss = softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
+    with obs.span("rt.train.xent"):
+        loss = softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
     return loss + opts.aux_coeff * aux, {"loss": loss, "aux": aux}
 
 
@@ -155,15 +162,20 @@ def make_train_step(cfg, opts: TrainOptions = TrainOptions()):
     """Returns ``train_step(model, opt, batch) -> (model, opt, metrics)``."""
 
     def train_step(model, opt: dict, batch: dict):
-        loss, metrics, grads = _grads(model, cfg, batch, opts)
-        grads, new_ef = _compress_grads(grads, opts.grad_compress, opt.get("ef"))
-        if bool(torch.isfinite(loss)):
-            _p, new_opt, om = adamw_update(opts.adamw, grads, opt, dict(model.named_parameters()))
-            if new_ef is not None:
-                new_opt["ef"] = new_ef
-            opt = new_opt
-        else:  # the NaN gate: nothing is applied
-            om = {"grad_norm": global_norm(grads), "lr": schedule(opts.adamw, opt["step"] + 1)}
+        with obs.span("rt.train.step"):
+            with obs.span("rt.train.grads"):
+                loss, metrics, grads = _grads(model, cfg, batch, opts)
+            grads, new_ef = _compress_grads(grads, opts.grad_compress, opt.get("ef"))
+            with obs.span("rt.train.nan_gate"):  # the host waits here for the step's device work
+                finite = bool(torch.isfinite(loss))
+            if finite:
+                with obs.span("rt.train.adamw"):
+                    _p, new_opt, om = adamw_update(opts.adamw, grads, opt, dict(model.named_parameters()))
+                if new_ef is not None:
+                    new_opt["ef"] = new_ef
+                opt = new_opt
+            else:  # the NaN gate: nothing is applied
+                om = {"grad_norm": global_norm(grads), "lr": schedule(opts.adamw, opt["step"] + 1)}
         return model, opt, dict(metrics, **om)
 
     return train_step
