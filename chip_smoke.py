@@ -44,7 +44,14 @@ Phases, each printing one JSON line:
            shape, bf16 x; timed, with its plan: CTAs, threads, shared
            memory, ptxas registers and spills) and in f32, at large decay,
            Q = 1, 17, 64 and 120 and
-           N = 64, against ssd_intra_bwd_plain; the banded-alignment DP on one 1024-lane chunk of the
+           N = 64, against ssd_intra_bwd_plain; the SSD chunk-state chain's
+           kernel pair (the state term) at mamba2-train's cell shape
+           (64 x 512 tokens) and zamba2-2.7b's train shape, bf16 y, timed
+           beside its bound (forward keeping the incoming states, as under
+           autograd, and not, as in serving; backward), and its decode step
+           with state0, against ssd_chain_plain and ssd_chain_bwd_plain
+           (also f32 at large decay; `chain_phase()` runs these rows
+           alone); the banded-alignment DP on one 1024-lane chunk of the
            batched mapper's Illumina lanes (L 150, band 24) and every card case of
            tests/dp_cases.py (widths up to 1023, both store routes), bit for
            bit, each case timed, with its plan (layout, route, grid, threads,
@@ -268,6 +275,7 @@ try:
     from repro_torch.kernels.sage_decode import launch_plan, unpack_plan
     from repro_torch.kernels.ssd_chunk import (bwd_plan, ssd_intra, ssd_intra_bwd, ssd_intra_bwd_plain,
                                                ssd_intra_plain)
+    from repro_torch.kernels import ssd_chain as SSD_CHAIN
     from repro_torch.models import layers as LAYERS
     from repro_torch.models import lm
     from repro_torch.models import moe as MOE
@@ -316,6 +324,15 @@ LM_BLOCK = 3 * GROUP  # the lm phase's prompts come from this block, through a s
 # sum once, so they differ by at most one bf16 ulp (2^-7 of the value) past
 # the f32 rows' 1e-5 for the order of the sum
 B6_TOL = {"y_f32": (1e-5, 1e-5), "y_bf16": (8e-3, 1e-5), "state": (1e-4, 1e-4), "total": (1e-5, 1e-5)}
+# the SSD chunk-state chain against its plain versions, (rtol, atol; the
+# gradients' atol a share of max|plain|): y as B6's; the final state is the
+# same f32 ops on both sides; the gradients' products are 3xTF32 against f32
+CHAIN_TOL = {"y_f32": (1e-5, 1e-5), "y_bf16": (8e-3, 1e-5), "state": (1e-5, 1e-5), "grad": (1e-5, 1e-5)}
+# the chain's timed shapes: mamba2-train's cell (64 x 512 tokens) and
+# zamba2-2.7b's hybrid train shape (8 x 512, 80 heads, N 64); its decode
+# step (8 prompts, Q = 1, with state0) is checked and timed as served
+CHAIN_SHAPES = {"cell": (64, 4, 128, 32, 64, 128), "zamba2": (8, 4, 128, 80, 64, 64),
+                "decode": (8, 1, 1, 32, 64, 128)}
 # the encode phase: batched SAGe_Write of Illumina reads over a 1 Mbp
 # reference (~33,300 reads of 150 bases); cut: scale only (an isolate at
 # 30x would be 4.6 Mbp), read length, band and width are not cut
@@ -789,6 +806,117 @@ def ssd_bwd_check(args) -> dict:
     return out
 
 
+def chain_args(shape, x_dtype, decay: str, seed: int, dev, state0: bool):
+    """The chain's inputs, B6's outputs on ``ssd_inputs``' draw (and a
+    seeded initial state), and the gradient of y in x's dtype."""
+    x, dt, a, B, C = ssd_inputs(shape, x_dtype, decay, seed, dev)
+    with torch.no_grad():
+        y_intra, st, total = ssd_intra(x, dt, a, B, C)
+    Bb, nc, Q, H, P, N = shape
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    s0 = torch.randn((Bb, H, P, N), generator=g, device=dev) * 0.3 if state0 else None
+    return (y_intra, st, total, a, C, s0), torch.randn((Bb, nc, Q, H, P), generator=g, device=dev).to(x_dtype)
+
+
+def chain_bound(shape, x_bytes: int, keep: bool, state0: bool, bwd: bool) -> tuple[float, str]:
+    """The chain's least time, the larger of its bytes (each read once and
+    each written once) over HBM_BYTES_PER_S and its f32-accurate products
+    over B6_OPS_PER_S. Forward: y_intra, st, total, a, C (and state0) read,
+    y, the final state (and, under autograd, the incoming states of chunks
+    1 ... nc - 1) written; 2QNP operations a (b, chunk, head). Backward (no
+    final-state gradient, as in training): dy, total, a, C, the kept states
+    (and state0) read, dst, dtotal, da, dC (and dstate0) written; 4QNP."""
+    Bb, nc, Q, H, P, N = shape
+    rows, heads, one = Bb * nc * Q * H, Bb * nc * H, Bb * H * P * N * 4
+    states, mid = heads * P * N * 4, Bb * (nc - 1) * H * P * N * 4
+    if bwd:
+        nbytes = rows * P * x_bytes + 2 * heads * 4 + 2 * rows * 4 + 2 * rows * N * 4 + mid + states \
+            + 2 * one * state0
+        return bound(nbytes, heads * 4 * Q * N * P, B6_OPS_PER_S)
+    nbytes = 2 * rows * P * x_bytes + states + heads * 4 + rows * 4 + rows * N * 4 + one * (1 + state0) + mid * keep
+    return bound(nbytes, heads * 2 * Q * N * P, B6_OPS_PER_S)
+
+
+def chain_check(ins, dy) -> dict:
+    """The chain's kernel pair against its plain versions on the same
+    inputs: max abs errors and whether each output lies within CHAIN_TOL."""
+    y, fin, mid = SSD_CHAIN._forward(*ins, keep=True)
+    yp, fp, mp = SSD_CHAIN.ssd_chain_plain(*ins, keep=True)
+    total, a, C, s0 = ins[2:]
+    got = SSD_CHAIN.ssd_chain_bwd(total, a, C, mid, s0, dy, None)
+    want = SSD_CHAIN.ssd_chain_bwd_plain(total, a, C, mp, s0, dy, None)
+    torch.cuda.synchronize()
+    ytol = CHAIN_TOL["y_f32" if y.dtype == torch.float32 else "y_bf16"]
+    pairs = [("y", y, yp, ytol, 1.0), ("state", fin, fp, CHAIN_TOL["state"], 1.0)]
+    pairs += [(k, u, v, CHAIN_TOL["grad"], float(v.abs().max()))
+              for k, u, v in zip(("dst", "dtotal", "da", "dC", "dstate0"), got, want) if u is not None]
+    out = {"finite": all(bool(torch.isfinite(u.float()).all()) for _k, u, *_r in pairs),
+           "kept_states_equal": mid is None or bool(torch.equal(mid, mp))}
+    for key, u, v, tol, top in pairs:
+        out[f"{key}_err"] = max_abs_err(u, v)
+        out[f"{key}_ok"] = bool(torch.allclose(u.float(), v.float(), rtol=tol[0], atol=tol[1] * top))
+    out["match"] = out["finite"] and out["kept_states_equal"] and all(out[f"{k}_ok"] for k, *_r in pairs)
+    return out
+
+
+def chain_rows(dev) -> dict:
+    """The chain's kernel pair at CHAIN_SHAPES with bf16 y (the train and
+    serve paths' type) and mamba2-370m's init: checked against the plain
+    versions (also f32 and large decay at the cell's shape), and timed
+    beside its bound: the forward as training runs it (keeping the
+    incoming states) and as serving does, the backward with no final-state
+    gradient. Returns the table's rows ``ssd_chain`` and ``ssd_chain_bwd``."""
+    checks, rows = {}, {}
+    for i, (shp, xdt, decay) in enumerate([("cell", torch.bfloat16, "serve"), ("cell", torch.float32, "large"),
+                                           ("zamba2", torch.bfloat16, "serve"), ("decode", torch.bfloat16, "serve"),
+                                           ("decode", torch.float32, "large")]):
+        shape, s0 = CHAIN_SHAPES[shp], shp == "decode"
+        ins, dy = chain_args(shape, xdt, decay, 400 + i, dev, s0)
+        name = f"{shp}_{str(xdt)[6:]}_{decay}"
+        checks[name] = chain_check(ins, dy)
+        if xdt == torch.bfloat16:
+            total, a, C, st0 = ins[2:]
+            fwd_ms, fwd_by = chain_bound(shape, 2, True, s0, False)
+            row = dict(shape=list(shape), **timings(lambda: SSD_CHAIN._forward(*ins, keep=True), 20,
+                                                    lambda: SSD_CHAIN.ssd_chain_plain(*ins, keep=True), 3),
+                       bound_ms=fwd_ms, bound_by=fwd_by)
+            row["bound_share"] = fwd_ms / row["ms"]
+            serve_ms, _by = chain_bound(shape, 2, False, s0, False)
+            row["serve"] = dict(ms=cuda_ms(lambda: SSD_CHAIN._forward(*ins, keep=False), 20)[0], bound_ms=serve_ms)
+            row["serve"]["bound_share"] = serve_ms / row["serve"]["ms"]
+            if shape[1] > 1:
+                _y, _f, mid = SSD_CHAIN._forward(*ins, keep=True)
+                b_ms, b_by = chain_bound(shape, 2, True, s0, True)
+                row["bwd"] = dict(**timings(lambda: SSD_CHAIN.ssd_chain_bwd(total, a, C, mid, st0, dy, None), 20,
+                                            lambda: SSD_CHAIN.ssd_chain_bwd_plain(total, a, C, mid, st0, dy, None), 3),
+                                  bound_ms=b_ms, bound_by=b_by)
+                row["bwd"]["bound_share"] = b_ms / row["bwd"]["ms"]
+                del mid
+            rows[shp] = row
+        del ins, dy
+        torch.cuda.empty_cache()
+    match = all(c["match"] for c in checks.values())
+    cell, zamba2 = rows["cell"], rows["zamba2"]
+    common = dict(route="cuda", source="src/repro_torch/kernels/csrc/ssd_chain.cu",
+                  replaces="no TPU twin: the state term of src/repro/models/ssm.py ssd_chunked", match=match,
+                  library_ms=None, plan=SSD_CHAIN.plan(CHAIN_SHAPES["cell"]))
+    errs = {k: max(v for f, v in c.items() if f.endswith("_err")) for k, c in checks.items()}
+    common["max_abs_err"] = max(errs.values())
+    fwd = {**common, **{k: v for k, v in cell.items() if k != "bwd"},
+           "zamba2": {k: v for k, v in zamba2.items() if k != "bwd"}, "decode": rows["decode"],
+           "checks": checks, "ptxas": ptxas_usage("ssd_chain", "ssd_chain_fwd_kernelI13__nv_bfloat16")}
+    bwd = {**common, "shape": cell["shape"], **cell["bwd"], "zamba2": {"shape": zamba2["shape"], **zamba2["bwd"]},
+           "ptxas": ptxas_usage("ssd_chain", "ssd_chain_bwd_kernelI13__nv_bfloat16")}
+    return {"ssd_chain": fwd, "ssd_chain_bwd": bwd}
+
+
+def chain_phase() -> None:
+    """The chain's rows alone, as one JSON line: ``python3 -c "import
+    chip_smoke; chip_smoke.chain_phase()"``."""
+    cuda_lib.build_all()
+    emit("chain", smi=smi(), **chain_rows(torch.device("cuda")))
+
+
 def dp_lanes(reads, cons: np.ndarray, mapper, L: int = 150):
     """The batched mapper's DP lanes of the N-free reads of length ``L``:
     both strands stacked, each lane's top seed cluster as its candidate,
@@ -976,9 +1104,10 @@ def lm_phase(dev, cfg) -> tuple[int, ServingEngine]:
         per_gen.append(trace_counts().get("launch:ssd_intra", 0) - before)
     counts = trace_counts()
     peak = torch.cuda.max_memory_allocated()
-    path = {kk: counts.get(f"launch:{kk}", 0) for kk in ("sage_unpack", "sage_fused", "ssd_intra")}
+    path = {kk: counts.get(f"launch:{kk}", 0) for kk in ("sage_unpack", "sage_fused", "ssd_intra", "ssd_chain")}
     plain = {kk: v for kk, v in counts.items() if kk.startswith("plain:")}
     assert not plain, f"the lm path ran plain versions on the card: {plain}"
+    assert path["ssd_chain"] == path["ssd_intra"], path  # one chain a B6 launch
     idle = [kk for kk, n in path.items() if n == 0]
     assert not idle, f"the lm path never launched: {idle}"
     assert per_gen == [cfg.n_layers * sc.max_new] * 2, per_gen
@@ -1425,11 +1554,13 @@ def train_phase(dev, cfg, src: SageFile, oracle: "Oracle") -> int:
     losses = [h["loss"] for h in hist]
     step_ms = [h["dt"] * 1e3 for h in hist]
     L, S = cfg.n_layers, tr["steps"]
-    path_n = {kk: counts.get(f"launch:{kk}", 0) for kk in ("sage_unpack", "sage_fused", "ssd_intra", "ssd_intra_bwd")}
+    path_n = {kk: counts.get(f"launch:{kk}", 0) for kk in ("sage_unpack", "sage_fused", "ssd_intra", "ssd_intra_bwd",
+                                                             "ssd_chain", "ssd_chain_bwd")}
     plain = {kk: v for kk, v in counts.items() if kk.startswith("plain:")}
     assert not plain, f"the train path ran plain versions on the card: {plain}"
     assert path_n["sage_unpack"] > 0 and path_n["sage_fused"] > 0, path_n
     assert (path_n["ssd_intra"], path_n["ssd_intra_bwd"]) == (2 * L * S, L * S), path_n
+    assert (path_n["ssd_chain"], path_n["ssd_chain_bwd"]) == (2 * L * S, L * S), path_n
     assert len(losses) == S and all(np.isfinite(losses)), losses
     assert losses[-1] < losses[0], f"training did not reduce the loss: {losses}"
     base = tr["first_tile"] * n_src  # the train container's block j is block base + j of the layout
@@ -2556,6 +2687,10 @@ def main() -> None:
         plan={**bwd_plan(b6_shapes["prefill"], torch.bfloat16),
               **ptxas_usage("ssd_chunk_bwd", "ssd_bwd_kernelI13__nv_bfloat16")})
 
+    # the SSD chunk-state chain's kernel pair at the train cell's and
+    # zamba2-2.7b's shapes, and its decode step
+    table.update(chain_rows(dev))
+
     # banded-alignment DP: one full lane chunk of the batched mapper on the
     # Illumina set (1024 lanes, L 150, band 24: width 49), and every card
     # case of tests/dp_cases.py (widths 49, 289 and 641, clipped windows,
@@ -2593,7 +2728,8 @@ def main() -> None:
     emit("kernels", int32_ops_per_s=int32_ops_per_s(), tolerance={"B1-B5, align_scan": "bit-identical (max_abs_err 0)",
                                "B6": {**B6_TOL, "rule": "(rtol, atol); matmul and cuDNN TF32 off"},
                                "B6 backward": {**B6_BWD_TOL, "rule": "(rtol, atol as a share of max|plain|)"}},
-         ssd_bwd=table["ssd_intra_bwd"], ssd_bwd_checks=bwd_checks,
+         ssd_bwd=table["ssd_intra_bwd"], ssd_bwd_checks=bwd_checks, ssd_chain=table["ssd_chain"],
+         ssd_chain_bwd=table["ssd_chain_bwd"],
          b6_ops_per_s=B6_OPS_PER_S, launch_floor_ms=floor_ms,
          ssd_prefill=b6_rows["prefill"],
          match={k: v["match"] for k, v in table.items()},
@@ -2759,7 +2895,8 @@ def main() -> None:
     step_peak("token_pipeline")
     peak = max(peaks.values())
     launches = {k: counts.get(f"launch:{k}", 0) for k in table
-                if not k.startswith("sage_fused_") and k not in ("ssd_intra", "ssd_intra_bwd", "align_scan")}
+                if not k.startswith("sage_fused_") and k not in ("ssd_intra", "ssd_intra_bwd", "ssd_chain",
+                                                                 "ssd_chain_bwd", "align_scan")}
     launches.update({f"sage_fused_{f}": n for f, n in fused_launches.items()})
     assert sum(fused_launches.values()) == counts.get("launch:sage_fused", 0), counts
     plain = {k: v for k, v in counts.items() if k.startswith("plain:")}
@@ -2821,6 +2958,7 @@ def main() -> None:
     # ---- lm: mamba2-370m at full width serves store-derived prompts --------
     serve_ssd, engine = lm_phase(dev, lm_cfg)
     launches["ssd_intra"] += serve_ssd
+    launches["ssd_chain"] = serve_ssd  # the lm path launches one chain a B6 launch (asserted there)
 
     # ---- serve: the SageServer frontend; heal: the self-healing store -------
     serve_phase(lm_cfg, engine, oracles["illumina"])
@@ -2829,7 +2967,9 @@ def main() -> None:
     heal_phase(src, oracles["illumina"])
 
     # ---- train: mamba2-370m at full width trains on SAGe k-mer tokens -----
-    launches["ssd_intra_bwd"] += train_phase(dev, lm_cfg, src, oracles["illumina"])
+    train_bwd = train_phase(dev, lm_cfg, src, oracles["illumina"])
+    launches["ssd_intra_bwd"] += train_bwd
+    launches["ssd_chain_bwd"] = train_bwd  # one chain backward a B6 backward (asserted there)
 
     # ---- the families: qwen2-1.5b, zamba2-2.7b, deepseek-moe-16b, qwen2-vl-72b, whisper-small --
     for kind in FAMILY:

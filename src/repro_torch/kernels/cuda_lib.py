@@ -38,6 +38,7 @@ SOURCES = {
     "reformat": "reformat.cu",
     "ssd_chunk": "ssd_chunk.cu",
     "ssd_chunk_bwd": "ssd_chunk_bwd.cu",
+    "ssd_chain": "ssd_chain.cu",
     "banded_align": "banded_align.cu",
 }
 NVCC_FLAGS = (

@@ -1,7 +1,8 @@
 """The port's kernels as ops: each routes by the device of its inputs —
 the hand-written CUDA kernel for CUDA tensors, the plain torch version
 (kernels/ref.py) for CPU tensors. There is no switch: the device decides.
-``ssd`` wraps the SSD intra-chunk kernel with the recurrence across chunks;
+``ssd`` runs the SSD intra-chunk kernel (B6) and the chunk-state chain,
+the recurrence across chunks;
 ``banded_align`` is the SAGe_Write mapper's batched DP.
 """
 
@@ -15,6 +16,7 @@ from repro_torch.core.decode_torch import DeviceBlocks
 from repro_torch.kernels import reformat
 from repro_torch.kernels.banded_align import align_scan
 from repro_torch.kernels.sage_decode import sage_decode_arrays, sage_fused_decode, sage_unpack
+from repro_torch.kernels.ssd_chain import ssd_chain
 from repro_torch.kernels.ssd_chunk import ssd_intra
 
 F32 = torch.float32
@@ -53,17 +55,18 @@ def banded_align(reads, wins, off0, wlen, *, band: int):
 
 
 def ssd(x, dt, A, B_, C_, chunk: int, state0=None):
-    """Full SSD: the intra-chunk kernel (B6) and the recurrence across chunks.
+    """Full SSD: the intra-chunk kernel (B6) and the chunk-state chain, the
+    recurrence across chunks (``kernels.ssd_chain``).
 
     x: (B,S,H,P); dt: (B,S,H) (post-softplus); A: (H,) negative; B_, C_:
     (B,S,H,N). Returns (y (B,S,H,P) in x's dtype, final state (B,H,P,N)
     f32). Same padding as ``models.ssm.ssd_chunked``: chunks of
     Q = min(chunk, S), padded steps carry dt = 0. The kernel writes the
     intra-chunk term in x's dtype, so in bf16 it is rounded before the state
-    term is added (``ssd_chunked`` rounds once). Under autograd the kernel
-    runs as ``SsdIntra`` (its backward is B6's gradient kernel) and the rest
-    are torch ops autograd follows; the padding is sliced off, so no
-    gradient reaches it."""
+    term is added (``ssd_chunked`` rounds once); the chain adds the state
+    term in f32 and rounds y once more. Under autograd the two run as
+    ``SsdIntra`` and ``SsdChain``, each with its gradient kernel; the padding
+    is sliced off, so no gradient reaches it."""
     Bb, S0, H, P = x.shape
     N = B_.shape[-1]
     Q = min(chunk, S0)
@@ -84,14 +87,5 @@ def ssd(x, dt, A, B_, C_, chunk: int, state0=None):
         y_intra, st_c, total = ssd_intra(xc, dtc, ac, Bc, Cc)
 
     with obs.span("rt.ssm.ssd_state"):
-        state = torch.zeros((Bb, H, P, N), dtype=F32, device=x.device) if state0 is None else state0.to(F32)
-        decay = torch.exp(total)  # (B,nc,H)
-        states_in = []  # the INCOMING state of each chunk
-        for c in range(nc):
-            states_in.append(state)
-            state = state * decay[:, c, :, None, None] + st_c[:, c]
-        states_in = torch.stack(states_in, dim=1)  # (B,nc,H,P,N)
-        cum = torch.cumsum(ac, dim=2)  # (B,nc,Q,H)
-        y_state = torch.einsum("bcqhn,bchdn->bcqhd", Cc, states_in) * torch.exp(cum)[..., None]
-        y = (y_intra.to(F32) + y_state).reshape(Bb, S, H, P)[:, :S0]
-        return y.to(x.dtype), state
+        y, state = ssd_chain(y_intra, st_c, total, ac, Cc, state0)
+        return y.reshape(Bb, S, H, P)[:, :S0], state

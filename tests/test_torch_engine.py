@@ -150,7 +150,7 @@ def engines_and_logits(jcfg, params, cfg, model, prompts, sc):
     got = np.stack(ServingEngine(cfg, model, ServeConfig(**sc)).generate(prompts))
     # one SSD launch (plain on the CPU) per Mamba2 layer for the prefill and each decode step
     n_ssd = cfg.n_layers * sc["max_new"] if cfg.family in ("ssm", "hybrid") else 0
-    assert cuda_lib.counts() == ({"plain:ssd_intra": n_ssd} if n_ssd else {})
+    assert cuda_lib.counts() == ({"plain:ssd_intra": n_ssd, "plain:ssd_chain": n_ssd} if n_ssd else {})
     toks = slots(prompts, sc["max_prompt"])
     max_len = sc["max_prompt"] + sc["max_new"] + 1
     j_step = jax.jit(JLM.decode_step, static_argnums=(1,))  # one compile for every step

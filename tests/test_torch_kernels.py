@@ -13,8 +13,9 @@ banded-alignment DP's cases alone:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_kernels.py -k align
 
-B6 and its backward kernel (every SSD case, the determinism, allow_tf32 and
-refusal tests, and ops.ssd's gradients against the CPU):
+B6 and its backward kernel, and the chunk-state chain's kernel pair (every
+SSD case, the determinism, allow_tf32 and refusal tests, and ops.ssd's
+gradients against the CPU):
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_kernels.py -k ssd
 
@@ -760,7 +761,8 @@ def test_ssd_gradients_on_card_match_cpu(cuda):
     want = grads("cpu")
     DT.reset_trace_counts()
     got = grads(cuda)
-    assert DT.trace_counts() == {"launch:ssd_intra": 1, "launch:ssd_intra_bwd": 1}
+    assert DT.trace_counts() == {"launch:ssd_intra": 1, "launch:ssd_intra_bwd": 1, "launch:ssd_chain": 1,
+                                  "launch:ssd_chain_bwd": 1}
     for a, b in zip(got, want):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
 
@@ -782,7 +784,8 @@ def test_train_step_on_card_matches_cpu(cuda):
         batch = cut_batch(cut, 2, 256, seed=2)
         DT.reset_trace_counts()
         card = one_step(cut, m_dev, batch, cuda)
-        assert DT.trace_counts() == {"launch:ssd_intra": 4, "launch:ssd_intra_bwd": 2}
+        assert DT.trace_counts() == {"launch:ssd_intra": 4, "launch:ssd_intra_bwd": 2, "launch:ssd_chain": 4,
+                                      "launch:ssd_chain_bwd": 2}
         compare_step(card, one_step(cut, m_cpu, batch, "cpu"))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = was
@@ -821,9 +824,132 @@ def test_ssd_on_card_matches_cpu(cuda):
     DT.reset_trace_counts()
     with torch.no_grad():
         got = ops.ssd(*(t.to(cuda) for t in (x, dt, A, B, C)), 128, s0.to(cuda))
-    assert DT.trace_counts() == {"launch:ssd_intra": 1}
+    assert DT.trace_counts() == {"launch:ssd_intra": 1, "launch:ssd_chain": 1}
     for a, b in zip(got, want):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+# the chain's shapes (B, nc, Q, H, P, N): mamba2-370m's train cell (64 x 512),
+# zamba2-2.7b's hybrid train shape (8 x 512, 80 heads, N 64), a decode step
+# (nc = Q = 1 with state0), the reduced configs' (P 16, N 16), a ragged tile
+# (P 96: two forward head-dim tiles and two backward launches; N 40: zeros
+# past N inside a 16-column group) and odd widths (the kernels' 4-byte paths)
+CHAIN_SHAPES = {"cell": (64, 4, 128, 32, 64, 128), "zamba2": (8, 4, 128, 80, 64, 64),
+                "decode": (8, 1, 1, 32, 64, 128), "tiny": (2, 4, 16, 4, 16, 16),
+                "ragged": (2, 3, 37, 3, 96, 40), "odd": (1, 3, 45, 2, 33, 27)}
+CHAIN_CASES = [("cell", torch.bfloat16, "serve", False), ("cell", torch.float32, "mild", False),
+               ("zamba2", torch.bfloat16, "serve", False), ("zamba2", torch.float32, "large", True),
+               ("decode", torch.bfloat16, "serve", True), ("decode", torch.float32, "mild", True),
+               ("tiny", torch.float32, "mild", True), ("tiny", torch.bfloat16, "large", False),
+               ("ragged", torch.float32, "large", True), ("ragged", torch.bfloat16, "mild", False),
+               ("odd", torch.float32, "mild", True), ("odd", torch.bfloat16, "mild", True)]
+
+
+def chain_inputs(shape, dtype, decay, with_state0, dev, seed=0):
+    """The chain's inputs from B6's kernel on ``ssd_inputs``' draw (``serve``:
+    mamba2-370m's init, dt near 0.01), state0 when asked, and the gradients of
+    y and the final state."""
+    from repro_torch.kernels.ssd_chunk import ssd_intra
+
+    Bb, nc, Q, H, P, N = shape
+    if decay == "serve":
+        x, _dt, _a, B, C = ssd_inputs(shape, dtype, "mild", dev, seed)
+        g = torch.Generator(device=dev).manual_seed(seed + 7)
+        dt = torch.nn.functional.softplus(torch.randn((Bb, nc, Q, H), generator=g, device=dev) - 4.6)
+        a = (dt * -torch.linspace(1.0, 16.0, H, device=dev)).contiguous()
+    else:
+        x, dt, a, B, C = ssd_inputs(shape, dtype, decay, dev, seed)
+    with torch.no_grad():
+        y_intra, st, total = ssd_intra(x, dt, a, B, C)
+    g = torch.Generator(device=dev).manual_seed(seed + 2000)
+    s0 = torch.randn((Bb, H, P, N), generator=g, device=dev) * 0.3 if with_state0 else None
+    dy = torch.randn((Bb, nc, Q, H, P), generator=g, device=dev).to(dtype)
+    dfin = torch.randn((Bb, H, P, N), generator=g, device=dev)
+    return (y_intra, st, total, a, C, s0), dy, dfin
+
+
+@pytest.mark.parametrize("name,dtype,decay,with_state0", CHAIN_CASES,
+                         ids=[f"{n}-{str(d)[6:]}-{c}-{'s0' if s else 'zeros'}" for n, d, c, s in CHAIN_CASES])
+def test_ssd_chain_kernels_match_plain(cuda, name, dtype, decay, with_state0):
+    """The chain's forward and backward kernels against ssd_chain_plain and
+    ssd_chain_bwd_plain on the card: y within 1e-5 (f32) or one bf16 ulp
+    (rtol 8e-3; both round one f32 sum), the final state within 1e-5 (the
+    same f32 ops), the kept states bit for bit; the gradients within rtol
+    1e-5 and 1e-5·max|grad| (3xTF32 products against f32 ones, sums in
+    another order), all finite. One counted launch each, no plain version."""
+    from repro_torch.kernels import ssd_chain as SC
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ins, dy, dfin = chain_inputs(CHAIN_SHAPES[name], dtype, decay, with_state0, cuda)
+    DT.reset_trace_counts()
+    y, fin, mid = SC._forward(*ins, keep=True)
+    assert DT.trace_counts() == {"launch:ssd_chain": 1}
+    yp, fp, mp = SC.ssd_chain_plain(*ins, keep=True)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and fin.dtype == torch.float32
+    assert all(bool(torch.isfinite(t.float()).all()) for t in (y, fin))
+    torch.testing.assert_close(y.float(), yp.float(), rtol=1e-5 if dtype == torch.float32 else 8e-3, atol=1e-5)
+    torch.testing.assert_close(fin, fp, rtol=1e-5, atol=1e-5)
+    if CHAIN_SHAPES[name][1] > 1:
+        assert torch.equal(mid, mp)
+    else:
+        assert mid is None
+    total, a, C, s0 = ins[2], ins[3], ins[4], ins[5]
+    got = SC.ssd_chain_bwd(total, a, C, mid, s0, dy, dfin)
+    assert DT.trace_counts() == {"launch:ssd_chain": 1, "launch:ssd_chain_bwd": 1}
+    want = SC.ssd_chain_bwd_plain(total, a, C, mp, s0, dy, dfin)
+    torch.cuda.synchronize()
+    for nm, u, v in zip(("dst", "dtotal", "da", "dC", "dstate0"), got, want):
+        if nm == "dstate0" and s0 is None:
+            assert u is None
+            continue
+        assert bool(torch.isfinite(u).all()), nm
+        torch.testing.assert_close(u, v, rtol=1e-5, atol=1e-5 * float(v.abs().max()),
+                                   msg=lambda m, nm=nm: f"{nm}: {m}")
+
+
+def test_ssd_chain_kernels_are_deterministic_and_ignore_allow_tf32(cuda):
+    """No atomics, and the products' precision is the kernels' own: the
+    same bits on a second launch and with PyTorch's TF32 switch on."""
+    from repro_torch.kernels import ssd_chain as SC
+
+    ins, dy, dfin = chain_inputs(CHAIN_SHAPES["zamba2"], torch.float32, "mild", True, cuda, seed=3)
+    was = torch.backends.cuda.matmul.allow_tf32
+    try:
+        outs = []
+        for flag in (False, False, True):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            y, fin, mid = SC._forward(*ins, keep=True)
+            outs.append((y, fin, mid, *SC.ssd_chain_bwd(ins[2], ins[3], ins[4], mid, ins[5], dy, dfin)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+    for other in outs[1:]:
+        for u, v in zip(outs[0], other):
+            assert torch.equal(u, v)
+
+
+def test_ssd_chain_refuses_what_it_cannot_take(cuda):
+    from repro_torch.kernels import ssd_chain as SC
+
+    ins, dy, dfin = chain_inputs((1, 2, 16, 2, 8, 8), torch.float32, "mild", True, cuda)
+    y_intra, st, total, a, C, s0 = ins
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        SC.ssd_chain(y_intra.half(), st, total, a, C, s0)
+    with pytest.raises(ValueError, match="must be float32"):
+        SC.ssd_chain(y_intra, st.double(), total, a, C, s0)
+    with pytest.raises(ValueError, match="contiguous"):
+        SC.ssd_chain(y_intra, st, total, a, C.transpose(3, 4).contiguous().transpose(3, 4), s0)
+    with pytest.raises(ValueError, match="all be on the CPU or all on CUDA"):
+        SC.ssd_chain(y_intra, st, total, a, C, s0.cpu())
+
+    def zeros(Bb, nc, Q, H, P, N):
+        return [torch.zeros(s, device=cuda) for s in
+                ((Bb, nc, Q, H, P), (Bb, nc, H, P, N), (Bb, nc, H), (Bb, nc, Q, H), (Bb, nc, Q, H, N))]
+
+    with pytest.raises(ValueError, match="state size 129 exceeds"):
+        SC.ssd_chain(*zeros(1, 1, 16, 2, 8, 129))
+    with pytest.raises(ValueError, match="chunk length 129 exceeds"):
+        SC.ssd_chain(*zeros(1, 1, 129, 2, 8, 8))
 
 
 # ------------------------------------- the dense and hybrid families on the card
@@ -904,7 +1030,8 @@ def test_family_train_step_on_card_matches_cpu(cuda, arch, layers):
         DT.reset_trace_counts()
         card = one_step(cut, m_dev, batch, cuda)
         n = layers if cut.family == "hybrid" else 0
-        assert DT.trace_counts() == ({"launch:ssd_intra": 2 * n, "launch:ssd_intra_bwd": n} if n else {})
+        assert DT.trace_counts() == ({"launch:ssd_intra": 2 * n, "launch:ssd_intra_bwd": n, "launch:ssd_chain": 2 * n,
+                                      "launch:ssd_chain_bwd": n} if n else {})
         compare_step(card, one_step(cut, m_cpu, batch, "cpu"))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = was

@@ -16,6 +16,7 @@ from repro.kernels.ssd_chunk import ssd_intra_pallas
 from repro.models.ssm import ssd_chunked as jax_ssd_chunked
 
 from repro_torch.kernels import cuda_lib, ops, ref
+from repro_torch.kernels import ssd_chain as SC
 from repro_torch.kernels.ssd_chunk import bwd_by_head_chunks, ssd_intra, ssd_intra_bwd_plain, ssd_intra_plain
 from repro_torch.models.ssm import ssd_chunked
 
@@ -53,7 +54,7 @@ def to_torch(arrs, xdt):
 
 
 def f32(a):
-    return a.float().numpy() if isinstance(a, torch.Tensor) else np.asarray(a, np.float32)
+    return a.detach().float().numpy() if isinstance(a, torch.Tensor) else np.asarray(a, np.float32)
 
 
 def close(ours, theirs, tol):
@@ -97,7 +98,7 @@ def test_ssd_matches_reference(shape, dtype):
     chunk = shape[-1]
     cuda_lib.reset_counts()
     y, s = ops.ssd(*to_torch(arrs, tdt), chunk)
-    assert cuda_lib.counts() == {"plain:ssd_intra": 1}  # one launch for every chunk
+    assert cuda_lib.counts() == {"plain:ssd_intra": 1, "plain:ssd_chain": 1}  # one launch each for every chunk
     yk, sk = JOPS.ssd(*to_jax(arrs, jdt), chunk, use_pallas=True)
     yr, sr = jax_ssd_chunked(*to_jax(arrs, jdt), chunk)
     tol = 1e-5 if dtype == "f32" else 3e-2
@@ -375,3 +376,152 @@ def test_bf16_x_needs_two_tf32_products():
     st = two("bcqhn,bcqhd->bchdn", Bm * w[..., None], x)
     assert float(((y - exact_y).abs() - 1e-5 * exact_y.abs()).max()) <= 1e-5
     assert float(((st - exact_st).abs() - 1e-4 * exact_st.abs()).max()) <= 1e-4
+
+
+def chain_reference(y_intra, st_c, total, ac, Cc, state0=None):
+    """The state term as ``ops.ssd`` ran it before the chain was a kernel
+    pair: a loop over chunks, f32 throughout (``cum`` summed in f32)."""
+    Bb, nc, _Q, H, P = y_intra.shape
+    N = Cc.shape[-1]
+    state = torch.zeros((Bb, H, P, N)) if state0 is None else state0.to(torch.float32)
+    decay = torch.exp(total)
+    states_in = []
+    for c in range(nc):
+        states_in.append(state)
+        state = state * decay[:, c, :, None, None] + st_c[:, c]
+    states_in = torch.stack(states_in, dim=1)
+    cum = torch.cumsum(ac, dim=2)
+    y_state = torch.einsum("bcqhn,bchdn->bcqhd", Cc, states_in) * torch.exp(cum)[..., None]
+    return (y_intra.to(torch.float32) + y_state).to(y_intra.dtype), state
+
+
+def chain_inputs(shape, seed, with_state0, xdt=torch.float32):
+    """B6's outputs on ``make``'s draw (the chain's inputs) at a SWEEP shape,
+    all leaves that require grad, and the gradients of y and the final state."""
+    B, S, H, P, N, chunk = shape
+    x, dt, a, Bm, Cm = to_torch(chunked(make(shape, seed=seed), chunk), torch.float32)
+    y_intra, st_c, total = ssd_intra_plain(x.to(xdt), dt, a, Bm, Cm)
+    r = np.random.default_rng(seed + 1)
+    s0 = torch.from_numpy((r.standard_normal((B, H, P, N)) * 0.3).astype(np.float32)) if with_state0 else None
+    leaves = [t.detach().clone().requires_grad_() for t in (y_intra, st_c, total, a, Cm)]
+    if s0 is not None:
+        leaves.append(s0.requires_grad_())
+    gy = torch.from_numpy(r.standard_normal(tuple(y_intra.shape)).astype(np.float32)).to(xdt)
+    gs = torch.from_numpy(r.standard_normal((B, H, P, N)).astype(np.float32))
+    return leaves, gy, gs
+
+
+@pytest.mark.parametrize("with_state0", [False, True], ids=["zeros", "state0"])
+@pytest.mark.parametrize("shape", SWEEP, ids=[f"{s[1]}x{s[3]}" for s in SWEEP])
+def test_chain_plain_and_its_backward_match_todays_code(shape, with_state0):
+    """The plain chain (CPU route of ``ssd_chain``) against the torch code
+    ``ops.ssd`` ran before: y within 1e-5 (its ``cum`` is summed in f64, the
+    old one in f32), the final state bit for bit (the same ops); its
+    written-out backward against autograd of the old code within 1e-5 and
+    1e-5·max|grad| for every input (f32 sums in another order)."""
+    leaves, gy, gs = chain_inputs(shape, shape[1] + shape[3], with_state0)
+    cuda_lib.reset_counts()
+    y, s = SC.ssd_chain(*leaves)
+    assert cuda_lib.counts() == {"plain:ssd_chain": 1}
+    yr, sr = chain_reference(*leaves)
+    close(y, yr, 1e-5)
+    assert torch.equal(s, sr)
+    got = torch.autograd.grad((y * gy).sum() + (s * gs).sum(), leaves)
+    assert cuda_lib.counts() == {"plain:ssd_chain": 1, "plain:ssd_chain_bwd": 1}
+    want = torch.autograd.grad((yr * gy).sum() + (sr * gs).sum(), leaves)
+    names = ["y_intra", "st", "total", "a", "C", "state0"]
+    for name, g, w in zip(names, got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * float(w.abs().max()),
+                                   msg=lambda m, name=name: f"{name}: {m}")
+    assert got[0] is not None and torch.equal(got[0], gy)  # d y_intra is dy itself
+
+
+@pytest.mark.parametrize("with_state0", [False, True], ids=["zeros", "state0"])
+@pytest.mark.parametrize("shape", SWEEP, ids=[f"{s[1]}x{s[3]}" for s in SWEEP])
+def test_ssd_gradients_match_ssd_chunked(shape, with_state0):
+    """``ops.ssd`` (B6 and the chain, each with its written-out backward on
+    the CPU) against autograd of the model's reference ``ssd_chunked``: y
+    and the final state within 1e-5 and 1e-4, the gradients of x, dt, A, B,
+    C and state0 within 1e-5·max|grad| (f32 sums in another order)."""
+    B, S, H, P, N, chunk = shape
+    arrs = make(shape, seed=S + P + 1)
+    r = np.random.default_rng(S)
+    s0 = (r.standard_normal((B, H, P, N)) * 0.3).astype(np.float32) if with_state0 else None
+    gy = torch.from_numpy(r.standard_normal((B, S, H, P)).astype(np.float32))
+    gs = torch.from_numpy(r.standard_normal((B, H, P, N)).astype(np.float32))
+
+    def run(fn):
+        ins = [torch.from_numpy(a).requires_grad_() for a in arrs]
+        if s0 is not None:
+            ins.append(torch.from_numpy(s0).requires_grad_())
+        y, s = fn(*ins[:5], chunk, *ins[5:])
+        return y, s, torch.autograd.grad((y * gy).sum() + (s * gs).sum(), ins)
+
+    y, s, got = run(ops.ssd)
+    yr, sr, want = run(ssd_chunked)
+    close(y, yr, 1e-5)
+    close(s, sr, 1e-4)
+    for name, g, w in zip(["x", "dt", "A", "B", "C", "state0"], got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * float(w.abs().max()),
+                                   msg=lambda m, name=name: f"{name}: {m}")
+
+
+def test_chain_routes_by_grad_mode():
+    """Under no_grad the chain is one forward call that keeps nothing; under
+    grad it goes through ``SsdChain``: one forward (which keeps the incoming
+    states of chunks 1 ... nc - 1) and one backward. An unused final state
+    gives the backward no gradient to read, and no state0 no gradient of it."""
+    leaves, gy, _gs = chain_inputs(SWEEP[0], 5, False)
+    cuda_lib.reset_counts()
+    with torch.no_grad():
+        y, s = SC.ssd_chain(*leaves)
+    assert y.grad_fn is None and cuda_lib.counts() == {"plain:ssd_chain": 1}
+    y, s = SC.ssd_chain(*leaves)
+    assert y.grad_fn is not None
+    (y * gy).sum().backward()
+    assert cuda_lib.counts() == {"plain:ssd_chain": 2, "plain:ssd_chain_bwd": 1}
+    assert all(t.grad is not None for t in leaves)
+    nc = leaves[0].shape[1]
+    _y, _s, mid = SC.ssd_chain_plain(*(t.detach() for t in leaves), keep=True)
+    assert mid.shape[1] == nc - 1
+
+
+@pytest.mark.parametrize("with_state0", [False, True], ids=["zeros", "state0"])
+def test_chain_bwd_by_head_chunks_matches_one_pass(with_state0):
+    """A head wider than one backward launch holds (P > 64) runs as head-dim
+    chunks: with the plain backward as the chunk's function, P 40 in chunks
+    of 16, 16 and 8 gives one pass's dst and dstate0 side by side and
+    dtotal, da and dC as sums, within 1e-5 and 1e-5·max|grad|."""
+    shape = (2, 48, 3, 40, 24, 16)
+    leaves, gy, gs = chain_inputs(shape, 9, with_state0)
+    y_intra, st_c, total, a, Cm = (t.detach() for t in leaves[:5])
+    s0 = leaves[5].detach() if with_state0 else None
+    _y, _s, mid = SC.ssd_chain_plain(y_intra, st_c, total, a, Cm, s0, keep=True)
+    args = (total, a, Cm, mid, s0, gy, gs)
+    widths = []
+
+    def plain(*chunk):
+        widths.append(chunk[5].shape[-1])
+        return SC.ssd_chain_bwd_plain(*chunk)
+
+    got = SC.bwd_by_head_chunks(plain, 16, *args)
+    assert widths == [16, 16, 8]
+    want = SC.ssd_chain_bwd_plain(*args)
+    for name, u, v in zip(("dst", "dtotal", "da", "dC", "dstate0"), got, want):
+        if name == "dstate0" and not with_state0:
+            assert u is None and v is None
+            continue
+        assert u.shape == v.shape, name
+        torch.testing.assert_close(u, v, rtol=1e-5, atol=1e-5 * float(v.abs().max()),
+                                   msg=lambda m, name=name: f"{name}: {m}")
+
+
+def test_chain_wrapper_checks_shapes():
+    leaves, _gy, _gs = chain_inputs(SWEEP[0], 3, True)
+    y_intra, st_c, total, a, Cm, s0 = (t.detach() for t in leaves)
+    with pytest.raises(ValueError, match="st must be"):
+        SC.ssd_chain(y_intra, st_c[..., :4], total, a, Cm, s0)
+    with pytest.raises(ValueError, match="state0 must be"):
+        SC.ssd_chain(y_intra, st_c, total, a, Cm, s0[:1])
+    with pytest.raises(ValueError, match="y_intra must be"):
+        SC.ssd_chain(y_intra[0], st_c, total, a, Cm, s0)

@@ -241,7 +241,8 @@ def test_ssd_gradients_match_jax_grad(case):
     y, s = ops.ssd(ins[0].to(td), *ins[1:5], chunk, ins[5])
     loss = (y.float() * torch.from_numpy(gy)).sum() + (s * torch.from_numpy(gs)).sum()
     got = torch.autograd.grad(loss, ins)
-    assert cuda_lib.counts() == {"plain:ssd_intra": 1, "plain:ssd_intra_bwd": 1}
+    assert cuda_lib.counts() == {"plain:ssd_intra": 1, "plain:ssd_intra_bwd": 1, "plain:ssd_chain": 1,
+                                 "plain:ssd_chain_bwd": 1}
     for name, g, w in zip(("x", "dt", "A", "B", "C", "state0"), got, want):
         tol = 2.0**-7 if (name == "x" and xdt == "bf16") else 1e-5
         leaf_close(g, w, tol, name)
@@ -539,7 +540,8 @@ def test_remat_gives_the_same_gradients(start, policy):
     cuda_lib.reset_counts()
     loss, _m, grads = TS._grads(model, cfg, b, TS.TrainOptions(remat=remat, remat_policy=pol))
     L = cfg.n_layers
-    assert cuda_lib.counts() == {"plain:ssd_intra": (2 if remat else 1) * L, "plain:ssd_intra_bwd": L}
+    assert cuda_lib.counts() == {"plain:ssd_intra": (2 if remat else 1) * L, "plain:ssd_intra_bwd": L,
+                                 "plain:ssd_chain": (2 if remat else 1) * L, "plain:ssd_chain_bwd": L}
     for k, g in grads.items():
         leaf_close(g, base[k], 1e-6, k)
 
@@ -577,8 +579,9 @@ def test_family_remat_gives_the_same_gradients(arch, remat, monkeypatch):
     else:
         groups = cfg.n_layers // cfg.attn_every
         assert runs == {"fwd": groups, "bwd": groups}
-        assert cuda_lib.counts() == {"plain:ssd_intra": (2 if remat else 1) * cfg.n_layers,
-                                     "plain:ssd_intra_bwd": cfg.n_layers}
+        n_fwd = (2 if remat else 1) * cfg.n_layers
+        assert cuda_lib.counts() == {"plain:ssd_intra": n_fwd, "plain:ssd_intra_bwd": cfg.n_layers,
+                                     "plain:ssd_chain": n_fwd, "plain:ssd_chain_bwd": cfg.n_layers}
     for k, g in grads.items():
         leaf_close(g, base[k], 1e-6, k)
 
