@@ -31,7 +31,6 @@ def emit(**kw) -> None:
 def train_seed(ctx, control: bool) -> None:
     import torch
 
-    from bench import weights
     from bench.drivers import train
 
     cell = train.Cell(ctx)
@@ -46,11 +45,11 @@ def train_seed(ctx, control: bool) -> None:
         return
     tr, cfg = ctx.traffic, ctx.cfg["arch"]
     _wrong, rebuilt = train.token_check(batches, rs, k)
-    w = weights.make(train.reference_module(cfg).param_spec(cfg), ctx.seed, ctx.device)
     first = rebuilt[: tr["checked_steps"]]
-    ref = train.reference_train(cfg, tr, w, first, "f32", tr["reference_rows"])
+    ref = train.reference_train(cfg, tr, ctx.seed, ctx.device, first, "f32", tr["reference_rows"])
     for side, kw in (("control_fp8", {"precision": "fp8"}), ("fault_half_batch", {"precision": "f32", "half": True})):
-        other = train.reference_train(cfg, tr, w, first, kw.pop("precision"), tr["reference_rows"], **kw)
+        other = train.reference_train(cfg, tr, ctx.seed, ctx.device, first, kw.pop("precision"),
+                                      tr["reference_rows"], **kw)
         r = train.readings(other, ref)
         emit(seed=ctx.seed, side=side, leaves=r.pop("_leaves"), loss_gap=r.pop("_loss_gap"), **r)
 

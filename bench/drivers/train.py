@@ -49,6 +49,14 @@ def reference_module(cfg: dict):
     return importlib.import_module(f"bench.reference.{cfg['family']}")
 
 
+def draw_weights(cfg: dict, seed: int, device) -> dict:
+    """The benchmark's weights of ``cfg`` drawn from ``seed`` on ``device``
+    (``bench/weights.py``). A draw gives the same weights each time, so a
+    side that needs them again after its steps draws them again rather
+    than keep a copy on the card through the steps."""
+    return weights.make(reference_module(cfg).param_spec(cfg), seed, device)
+
+
 def train_options(tr: dict):
     from repro_torch.training.optimizer import AdamWConfig
     from repro_torch.training.steps import TrainOptions
@@ -76,6 +84,11 @@ def leaf_norms(tensors: dict) -> dict:
     return {k: float(torch.linalg.vector_norm(v.detach().double())) for k, v in tensors.items()}
 
 
+def change_norms(params: dict, w: dict) -> dict:
+    """Each leaf's change from the weights ``w`` it started from."""
+    return {k: float(torch.linalg.vector_norm((params[k].detach() - w[k]).double())) for k in w}
+
+
 def gap(prog: dict, ref: dict, grad_ref: dict) -> tuple[float, str]:
     """The worst leaf's |prog norm - ref norm| over the larger of the
     reference's norm of that leaf and of the median leaf; leaves whose
@@ -92,7 +105,9 @@ def gap(prog: dict, ref: dict, grad_ref: dict) -> tuple[float, str]:
 
 class Cell:
     """The system under test as the traffic builds it, with what its first
-    steps gave."""
+    steps gave. The benchmark's weights are dropped once they are copied
+    into the model and drawn again from the seed for the change after the
+    checked steps, so no copy of them sits on the card through a step."""
 
     def __init__(self, ctx) -> None:
         from repro_torch.data.pipeline import SageTokenPipeline
@@ -109,11 +124,10 @@ class Cell:
         with ctx.phase("container_write"):
             self.rs, self.store, self.path = write_container(ctx, "train")
         with ctx.phase("model_init"):
-            w = weights.make(reference_module(cfg).param_spec(cfg), ctx.seed, dev)
             opts = train_options(tr)
             self.model, self.opt = init_train_state(torch.Generator(device=dev).manual_seed(ctx.seed),
                                                     self.arch, opts, device=dev)
-            weights.load_into(self.model, w)
+            weights.load_into(self.model, draw_weights(cfg, ctx.seed, dev))
             self.step_fn = make_train_step(self.arch, opts)
             p = tr["pipeline"]
             self.pipe = SageTokenPipeline("train", self.arch.vocab, tr["batch"], tr["seq"], store=self.store,
@@ -127,9 +141,7 @@ class Cell:
                 self.step()
                 if i == 0:
                     self.m1 = leaf_norms(self.opt["m"])
-            self.change = {k: float(torch.linalg.vector_norm((p.detach() - w[k]).double()))
-                           for k, p in self.model.named_parameters()}
-            del w
+            self.change = change_norms(dict(self.model.named_parameters()), draw_weights(cfg, ctx.seed, dev))
             ctx.sync()
 
     def step(self) -> None:
@@ -160,44 +172,51 @@ class Cell:
         self.path.unlink(missing_ok=True)
 
 
-def reference_train(cfg: dict, tr: dict, w: dict, batches: list, precision: str, rows: int,
+def reference_train(cfg: dict, tr: dict, seed: int, device, batches: list, precision: str, rows: int,
                     half: bool = False) -> dict:
-    """The plain reference's first steps from weights ``w`` on ``batches``
-    ({tokens, labels} host arrays): each step's loss, the first moment's
+    """The plain reference's first steps from the benchmark's weights
+    (drawn from ``seed`` on ``device``) on ``batches`` ({tokens, labels}
+    host arrays): each step's loss, the first moment's and the gradient's
     leaf norms after step 1 and each leaf's change after the last step.
-    The gradient of a step is summed over blocks of ``rows`` rows, each
-    block's mean loss weighted by its share. ``half`` takes the loss over
-    the first half of each batch's rows only (a fault)."""
+    The gradient of a step is summed from zero over blocks of ``rows``
+    rows, in order, each block's mean loss weighted by its share. ``half``
+    takes the loss over the first half of each batch's rows only (a fault).
+
+    It holds four f32 copies of the parameters on the device: the
+    parameters, one gradient set (each block's ``backward`` adds into
+    ``.grad``), and the two moments. The weights it started from are drawn
+    again for the change once the gradients are freed."""
     fwd = reference_module(cfg).forward
     mm = base.matmul(precision)
-    dev = next(iter(w.values())).device
-    params = {k: v.clone().requires_grad_(True) for k, v in w.items()}
-    m = {k: torch.zeros_like(v) for k, v in w.items()}
-    v_ = {k: torch.zeros_like(v) for k, v in w.items()}
+    params = {k: v.clone().requires_grad_(True) for k, v in draw_weights(cfg, seed, device).items()}
+    m = {k: torch.zeros_like(p) for k, p in params.items()}
+    v_ = {k: torch.zeros_like(p) for k, p in params.items()}
     losses, m1 = [], None
     with base.exact_f32():
         for s, b in enumerate(batches, start=1):
-            tok, lab = (torch.as_tensor(b[k], device=dev) for k in ("tokens", "labels"))
+            tok, lab = (torch.as_tensor(b[k], device=device) for k in ("tokens", "labels"))
             if half:
                 tok, lab = tok[: tok.shape[0] // 2], lab[: lab.shape[0] // 2]
             B = tok.shape[0]
-            grads = {k: torch.zeros_like(v) for k, v in w.items()}
+            for p in params.values():
+                p.grad = torch.zeros_like(p)
             total = 0.0
             for r0 in range(0, B, rows):
                 part = slice(r0, min(r0 + rows, B))
                 loss = base.xent(fwd(params, cfg, tok[part], mm), lab[part]) * ((part.stop - r0) / B)
-                gs = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-                for (k, _p), g in zip(params.items(), gs):
-                    if g is not None:
-                        grads[k] += g
+                loss.backward()
                 total += float(loss.detach())
-                del loss, gs
+                del loss
+            grads = {k: p.grad for k, p in params.items()}
             base.adamw_step(tr["adamw"], params, grads, m, v_, s)
             losses.append(total)
             if s == 1:
                 m1 = leaf_norms(m)
                 g1 = leaf_norms(grads)
-    change = {k: float(torch.linalg.vector_norm((params[k].detach() - w[k]).double())) for k in w}
+            del grads
+    for p in params.values():
+        p.grad = None
+    change = change_norms(params, draw_weights(cfg, seed, device))
     return {"losses": losses, "m1": m1, "g1": g1, "change": change}
 
 
@@ -244,19 +263,35 @@ def token_check(batches: list, rs, k: int) -> tuple[int, list]:
 
 
 def check(ctx, prog: dict, batches: list, rs, k: int) -> dict:
-    """The compared numbers of a run whose first steps gave ``prog``."""
+    """The compared numbers of a run whose first steps gave ``prog``; the
+    ``reference`` line logs the device's peak bytes over the check."""
     tr, cfg = ctx.traffic, ctx.cfg["arch"]
     t_check = time.perf_counter()
+    on_card = ctx.device != "cpu"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
     wrong, rebuilt = token_check(batches, rs, k)
     got = {"tokens_wrong": float(wrong)}
     if rebuilt:
-        w = weights.make(reference_module(cfg).param_spec(cfg), ctx.seed, ctx.device)
-        ref = reference_train(cfg, tr, w, rebuilt[: tr["checked_steps"]], "f32", tr["reference_rows"])
+        ref = reference_train(cfg, tr, ctx.seed, ctx.device, rebuilt[: tr["checked_steps"]], "f32",
+                              tr["reference_rows"])
         r = readings(prog, ref)
         ctx.log("reference", losses=ref["losses"], program_losses=prog["losses"], leaves=r.pop("_leaves"),
-                loss_gap=r.pop("_loss_gap"), seconds=time.perf_counter() - t_check)
+                loss_gap=r.pop("_loss_gap"), seconds=time.perf_counter() - t_check,
+                memory_peak_bytes=torch.cuda.max_memory_allocated() if on_card else 0)
         got.update(r)
     return got
+
+
+def window_record(cfg: dict, tr: dict, spans, t0: float) -> SimpleNamespace:
+    """What the per-layer readers read beside the traced window: the
+    configuration, the traffic, the harness's spans, the window's start,
+    a step's model FLOPs (found by family) and B6's launch shape, None
+    where the configuration has no SSM layers."""
+    B, S = tr["batch"], tr["seq"]
+    return SimpleNamespace(cfg=cfg, traffic=tr, spans=spans, t_window=t0,
+                           ssd_shape=roofline.ssd_shape(cfg, B, S) if cfg.get("ssm_state", 0) > 0 else None,
+                           step_flops=roofline.train_step_flops(cfg, B, S))
 
 
 def run(ctx) -> dict:
@@ -267,9 +302,7 @@ def run(ctx) -> dict:
     ctx.sync()
     t0 = time.perf_counter()
     ctx.phases["setup_s"] = t0 - ctx.t_start
-    rec = SimpleNamespace(cfg=cfg, traffic=tr, spans=spans, t_window=t0,
-                          ssd_shape=roofline.ssd_shape(cfg, B, S),
-                          step_flops=roofline.train_step_flops(cfg, B, S))
+    rec = window_record(cfg, tr, spans, t0)
     if ctx.trace:
         from bench.trace import Window
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from bench import roofline
 from bench.reference import base
 
 F32 = torch.float32
@@ -73,3 +74,11 @@ def forward(params: dict, cfg: dict, tokens, mm):
     for i in range(cfg["n_layers"]):
         x = mamba2(params, f"layers.{i}", x, cfg, mm)
     return base.head(params, cfg, x, mm)
+
+
+def forward_flops(cfg: dict, batch: int, seq: int) -> int:
+    """Model FLOPs of one forward over (batch, seq) tokens: every layer's
+    Mamba2 block (``roofline.mamba2_layer_flops``) and the head's product
+    at every position."""
+    head = 2 * batch * seq * cfg["d_model"] * cfg["vocab"]
+    return cfg["n_layers"] * roofline.mamba2_layer_flops(cfg, batch, seq) + head

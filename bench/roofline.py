@@ -5,6 +5,8 @@ the program's own estimates (``launch/op_cost.py``)."""
 
 from __future__ import annotations
 
+import importlib
+
 HBM_BYTES_PER_S = 3.35e12  #: HBM3
 BF16_FLOPS = 989e12  #: dense bf16 tensor-core rate, the MFU peak
 TF32_FLOPS = 495e12
@@ -64,12 +66,16 @@ def mamba2_layer_flops(cfg: dict, batch: int, seq: int) -> int:
 
 
 def forward_flops(cfg: dict, batch: int, seq: int) -> int:
-    """Model FLOPs of one forward pass over (batch, seq) tokens, the head's
-    product at every position."""
-    if cfg["family"] != "ssm":
-        raise ValueError(f"no FLOP count for the {cfg['family']} family")
-    head = 2 * batch * seq * cfg["d_model"] * cfg["vocab"]
-    return cfg["n_layers"] * mamba2_layer_flops(cfg, batch, seq) + head
+    """Model FLOPs of one forward pass over (batch, seq) tokens, products
+    only, the head's product at every position: the ``forward_flops`` of
+    the family's plain reference, ``bench/reference/<family>.py``, which
+    counts from the sizes it runs."""
+    family = cfg["family"]
+    count = getattr(importlib.import_module(f"bench.reference.{family}"), "forward_flops", None)
+    if count is None:
+        raise ValueError(f"bench/reference/{family}.py has no forward_flops(cfg, batch, seq): "
+                         f"no FLOP count for the {family} family")
+    return count(cfg, batch, seq)
 
 
 def train_step_flops(cfg: dict, batch: int, seq: int) -> int:

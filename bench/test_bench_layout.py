@@ -7,6 +7,7 @@ from __future__ import annotations
 import json
 import re
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -105,6 +106,21 @@ def test_roofline_counts_match_hand_counts():
     # 2·(6·1 + 6·2 + 4·2·1·2) = 68; head 2·2·3 = 12 a token
     assert roofline.forward_flops(cfg, 1, 2) == 64 * 2 + 68 + 12 * 2
     assert roofline.train_step_flops(cfg, 1, 2) == 3 * (64 * 2 + 68 + 24)
+
+
+def test_the_cells_step_flops_stay_as_counted():
+    cfg = harness.load_json(ROOT / "bench" / "configs" / "mamba2-370m.json")["arch"]
+    assert roofline.train_step_flops(cfg, 64, 512) == 80_968_723_464_192
+
+
+def test_a_familys_flops_come_from_its_reference_module(monkeypatch):
+    stub = types.ModuleType("bench.reference.stub_family")
+    stub.forward_flops = lambda cfg, batch, seq: cfg["width"] * batch * seq
+    monkeypatch.setitem(sys.modules, "bench.reference.stub_family", stub)
+    assert roofline.train_step_flops({"family": "stub_family", "width": 5}, 2, 3) == 3 * 5 * 2 * 3
+    monkeypatch.setitem(sys.modules, "bench.reference.no_count", types.ModuleType("bench.reference.no_count"))
+    with pytest.raises(ValueError, match=r"bench/reference/no_count\.py has no forward_flops"):
+        roofline.forward_flops({"family": "no_count"}, 2, 3)
 
 
 def test_kmer_formatter_matches_known_strings():
